@@ -1,5 +1,5 @@
 # Developer entry points. Tests force the CPU backend themselves
-# (tests/conftest.py); bench runs on the default (TPU) platform.
+# (tests/conftest.py); bench and chip-smoke need a GPU.
 
 .PHONY: test test-fast bench bench-10m native e2e clean
 

@@ -2,7 +2,7 @@
 
 Generates a 200k-entity planted-signal collection, prepares ~10M instances,
 trains 8 epochs of sampled-softmax LSE (bf16 compute, steps_per_call=16),
-scores 200 topics with the Pallas engine, and reports metrics — the whole
+scores 200 topics with the exact engine, and reports metrics — the whole
 pipeline at a scale two orders above the e2e tests. Run time dominated by
 single-core host prep on this machine.
 """
@@ -55,7 +55,7 @@ def main():
         train=TrainConfig(batch_size=4096, num_epochs=8,
                           optimizer=args.optimizer, learning_rate=args.lr,
                           steps_per_call=16, log_every_steps=0),
-        score=ScoreConfig(top_k=100, similarity="cosine", engine="pallas"))
+        score=ScoreConfig(top_k=100, similarity="cosine", engine="exact"))
     t0 = time.time()
     state, recipe = pipeline.train_from_dir(recipe, ddir, tempfile.mkdtemp())
     print(f"train {time.time()-t0:.0f}s ({int(state.step)} steps)", flush=True)

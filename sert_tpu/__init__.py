@@ -1,4 +1,4 @@
-"""sert-tpu: a TPU-native semantic entity retrieval framework.
+"""sert-tpu: a semantic entity retrieval framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of cvangysel/SERT
 (Semantic Entity Retrieval Toolkit): learning latent entity representations
@@ -12,8 +12,8 @@ Design notes (vs. the reference):
     over a ``jax.sharding.Mesh`` with the entity-embedding matrix sharded
     over the ``model`` mesh axis and batches over the ``data`` axis.
   * The reference's Theano-compiled kernels become XLA programs plus Pallas
-    (Mosaic) kernels for the hot paths (tiled entity scoring, fused
-    softmax cross-entropy).
+    kernels on the Triton route for two GPU hot paths (the fused bin-max
+    scoring sweep, the flash sampled-softmax loss).
   * The reference mount (/root/reference) was empty at build time (see
     SURVEY.md section 0), so parity citations refer to the companion papers
     and SURVEY.md's layer map rather than file:line of upstream code.
@@ -25,7 +25,8 @@ Layer map (mirrors SURVEY.md section 2):
   scoring/   L5: dense entity-matrix scoring engine with streaming top-k
   eval/      L6: TREC topic/qrel/run I/O and native trec_eval-style metrics
   parallel/  mesh construction, shardings, distributed top-k (new capability)
-  ops/       Pallas TPU kernels
+  ops/       Pallas GPU kernels (Triton route) and their XLA references
+  engines.py every platform / size choice of engine and kernel
   native/    C++ host-side feeder acceleration (tokenize/window sweep)
 """
 

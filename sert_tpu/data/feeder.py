@@ -1,7 +1,7 @@
 """Device feed: double-buffered host->device batch pipeline.
 
 The reference overlapped multiprocessing batch construction with Theano
-device compute (SURVEY.md section 4.2). The TPU-native equivalent: a small
+device compute (SURVEY.md section 4.2). The equivalent here: a small
 background thread stages the next host batch onto the device (optionally with
 an explicit ``NamedSharding`` for data-parallel meshes) while the current
 step runs — JAX dispatch is async, so depth-2 prefetch suffices to keep the

@@ -137,9 +137,8 @@ class InstanceDataset:
     def _load_shard(self, name: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         # ONE bulk sequential read, then parse the zip container in memory.
         # np.load on a file object issues many small chunked reads through
-        # zipfile; on high-latency block devices that measures ~4x slower
-        # than the device's sequential rate (8 vs 30 MB/s cold on the
-        # 1M-stress dataset — benchmarks/NOTES.md, feeder section).
+        # zipfile; on high-latency block devices that is several times
+        # slower than the device's sequential rate.
         with open(os.path.join(self.data_dir, name), "rb") as fh:
             raw = fh.read()
         with np.load(io.BytesIO(raw)) as z:
@@ -190,11 +189,9 @@ class InstanceDataset:
             return w[perm], l[perm], e[perm]
 
         # One-slot shard readahead: shard si+1 loads (disk read + permute)
-        # on a daemon thread while si's batches are consumed. The disk here
-        # sits behind ~10 ms of per-IO latency, so an unhidden cold shard
-        # load stalls the feed for seconds at every shard boundary — the
-        # measured host-side epoch rate on the 1M-stress dataset was 50
-        # batches/s against the device's 77 steps/s (NOTES.md).
+        # on a daemon thread while si's batches are consumed: on a disk
+        # with ~10 ms of per-IO latency an unhidden cold shard load stalls
+        # the feed for seconds at every shard boundary.
         nxt_result: List = [None, None]  # (exception?, tuple)
 
         def prefetch(si: int) -> threading.Thread:

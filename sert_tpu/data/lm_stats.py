@@ -8,13 +8,13 @@ statistics are collected during the prepare sweep over the SAME encoded
 token stream the window extractor consumes, so the LM sees exactly the
 preprocessing (lowercase, stopwords, OOV-dropped) the semantic models see.
 
-Design note (why this is host-side numpy, not a TPU kernel): the stats
+Design note (why this is host-side numpy, not a device kernel): the stats
 are a sparse entity×term count matrix built once at prepare time by a
 streaming reduction — integer scatter-adds with data-dependent sparsity,
-no MXU work anywhere. Scoring (models/lm.py) is a handful of sparse
+no matmul work anywhere. Scoring (models/lm.py) is a handful of sparse
 column gathers per query term. Shipping the sparse matrix to HBM would
 cost more than the whole computation; the dense semantic scoring path is
-where the TPU earns its keep.
+where the accelerator earns its keep.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ Shape contract for the device: windows are ALWAYS exactly ``window_size``
 wide. Documents shorter than the window emit one zero-padded window plus an
 explicit ``length``; models compute a masked mean so padding never biases the
 window representation (the reference's Theano graph took ragged input — a
-TPU program cannot, so the mask is the TPU-native equivalent).
+jitted program with static shapes cannot, so the mask is the equivalent).
 
 A C++ fast path for this sweep lives in sert_tpu/native (same output
 contract, tested for equality against this implementation).

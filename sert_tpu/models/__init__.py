@@ -11,7 +11,7 @@ Both model families from the reference (SURVEY.md section 1):
     negative sampling (sampled contrastive objective).
 
 Models are functional: params are plain pytrees (dicts of arrays), losses are
-pure functions — the TPU-native analogue of the reference's "build a Theano
+pure functions — the JAX analogue of the reference's "build a Theano
 graph, hand it to the compiler" boundary (SURVEY.md section 2, L3->L0).
 """
 

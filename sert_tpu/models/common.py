@@ -38,7 +38,7 @@ def masked_mean_embed(word_emb: jax.Array, windows: jax.Array,
 
     ``windows`` int32[B, w], ``lengths`` int32[B] (<= w; positions past the
     length are padding and excluded). The reference averaged ragged windows
-    (SURVEY.md section 1, model descriptions); static TPU shapes demand the
+    (SURVEY.md section 1, model descriptions); static jit shapes demand the
     mask formulation.
     """
     return masked_mean_pool(word_emb[windows], lengths)       # [B, d]

@@ -13,7 +13,7 @@ Smoothing:
   jm:         P(t|e) = (1-lam) * tf(t,e)/len_e + lam * P(t|C)
 
 Scoring is host-side numpy over the sparse prepare-time statistics
-(data/lm_stats.py documents why this is not a TPU kernel), chunked over
+(data/lm_stats.py documents why this is not a device kernel), chunked over
 the entity axis with a running top-k so memory stays O(Q * (k + chunk)).
 """
 

@@ -47,46 +47,12 @@ def logits(params: Params, windows: jax.Array, lengths: jax.Array,
     return out + params["proj_b"].astype(jnp.float32)
 
 
-def _use_fused(cfg: ModelConfig) -> bool:
-    if cfg.fused_softmax == "on":
-        return True
-    if cfg.fused_softmax == "off":
-        return False
-    if cfg.num_entities < 4096 or jax.default_backend() != "tpu":
-        return False
-    # Auto also requires a VMEM-plan-feasible tile at this model width
-    # (the kernel consumes the POOLED rep: word_dim for loglinear,
-    # entity_dim for lse_full); very wide models (plain_xent_te raises
-    # for dp >= ~2432) fall back to the XLA composition instead of
-    # erroring.
-    from sert_tpu.ops.xent import LANES, plain_xent_te
-    d = cfg.word_dim if cfg.model == "loglinear" else cfg.entity_dim
-    try:
-        plain_xent_te(max(-(-d // LANES) * LANES, LANES))
-    except ValueError:
-        return False
-    return True
-
-
 def loss(params: Params, batch, cfg: ModelConfig,
          rng: jax.Array = None) -> jax.Array:
-    """Mean cross-entropy of the full softmax over entities.
-
-    Two equivalent paths: the XLA composition (written as lse(z) - z_y so a
-    sharded entity axis reduces with one collective log-sum-exp) and the
-    fused Pallas kernel (ops/xent.py) that never materializes [B, E] logits
-    — selected by cfg.fused_softmax, grad-parity tested.
-    """
+    """Mean cross-entropy of the full softmax over entities, written as
+    lse(z) - z_y so a sharded entity axis reduces with one collective
+    log-sum-exp."""
     del rng  # full softmax needs no sampling randomness
-    if _use_fused(cfg):
-        from sert_tpu.ops.xent import xent_loss
-        ct = compute_dtype(cfg)
-        pooled = masked_mean_embed(params["word_emb"].astype(ct),
-                                   batch["windows"], batch["lengths"])
-        total = xent_loss(pooled.astype(jnp.float32), params["proj_w"],
-                          params["proj_b"], batch["entities"], "de",
-                          dtype=cfg.compute_dtype)
-        return total / batch["windows"].shape[0]
     z = logits(params, batch["windows"], batch["lengths"], cfg)   # [B, E]
     lse = jax.scipy.special.logsumexp(z, axis=-1)                 # [B]
     gold = jnp.take_along_axis(z, batch["entities"][:, None], axis=-1)[:, 0]

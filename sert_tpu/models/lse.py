@@ -21,6 +21,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from sert_tpu import engines
 from sert_tpu.models.common import (
     Params,
     compute_dtype,
@@ -113,29 +114,6 @@ def loss(params: Params, batch, cfg: ModelConfig, rng: jax.Array = None,
     return -jnp.mean(ll)
 
 
-def _use_fused_sampled(cfg: ModelConfig, k: int) -> bool:
-    """Fused-kernel policy for the sampled objective — same knob and shape
-    as loglinear._use_fused, but thresholded on the CANDIDATE count: the
-    [B, k] logits array is this loss's HBM bill, and the measured 1M train
-    only becomes bandwidth-bound past ~2k shared negatives (108 -> 57
-    steps/s over k=1024 -> 16384; benchmarks/NOTES.md round-4 negatives
-    ladder). Below that the XLA composition is already cheap. Width
-    feasibility reuses the xent VMEM plan (the tile budget is identical —
-    the candidate axis plays xent's entity axis)."""
-    if cfg.fused_softmax == "on":
-        return True
-    if cfg.fused_softmax == "off":
-        return False
-    if k < 2048 or jax.default_backend() != "tpu":
-        return False
-    from sert_tpu.ops.xent import LANES, plain_xent_te
-    try:
-        plain_xent_te(max(-(-cfg.entity_dim // LANES) * LANES, LANES))
-    except ValueError:
-        return False
-    return True
-
-
 def sampled_softmax_inputs(params: Params, batch, cfg: ModelConfig,
                            rng: jax.Array = None,
                            negatives: Optional[jax.Array] = None,
@@ -191,26 +169,29 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
     objective at any k. tests/test_models.py checks this convergence
     numerically.
 
-    TPU-first consequence of SHARING the negatives: the negative scores are
-    one [B, d] x [d, k] matmul on the MXU instead of B independent [k, d]
-    gathers + einsum — so k can be hundreds-to-thousands at negligible
-    step-cost, where per-example NCE paid O(B*k) gather rows. Gradients
+    Consequence of SHARING the negatives: the negative scores are one
+    [B, d] x [d, k] matmul instead of B independent [k, d] gathers +
+    einsum — so k can be hundreds-to-thousands at small step cost, where
+    per-example NCE paid O(B*k) gather rows. Gradients
     still touch only k + B entity rows per step (the scaling story that
     makes LSE viable at large E stays intact).
     """
     reps, cand, corr, negatives, pos, s_pos = sampled_softmax_inputs(
         params, batch, cfg, rng=rng, negatives=negatives, noise=noise)
     k = negatives.shape[0]
-    if _use_fused_sampled(cfg, k):
+    if engines.fused_sampled_lse(cfg.fused_softmax, k):
         # Flash path: the masked lse over the shared candidates comes out
-        # of one Pallas sweep with no [B, k] logits in HBM; the loss is the
-        # algebraically identical softplus form
+        # of the Triton kernels with no [B, k] logits in device memory; the
+        # loss is the algebraically identical softplus form
         #   lse([s_pos, s_neg*]) - s_pos = softplus(lse(s_neg*) - s_pos).
         from sert_tpu.ops.sampled_lse import sampled_lse
         lse_neg = sampled_lse(reps, cand, corr, negatives, pos,
                               dtype=cfg.compute_dtype)                  # [B]
         return jnp.mean(jax.nn.softplus(lse_neg - s_pos))
-    s_neg = (jnp.dot(reps, cand.T, preferred_element_type=jnp.float32)
+    # Operands in the compute dtype with fp32 accumulation, as the kernel.
+    ct = compute_dtype(cfg)
+    s_neg = (jnp.dot(reps.astype(ct), cand.astype(ct).T,
+                     preferred_element_type=jnp.float32)
              - corr[None, :])                                           # [B, k]
     hit = negatives[None, :] == pos[:, None]
     s_neg = jnp.where(hit, -1e30, s_neg)
@@ -222,18 +203,9 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
 def loss_full_softmax(params: Params, batch, cfg: ModelConfig,
                       rng: jax.Array = None) -> jax.Array:
     """Full-softmax cross-entropy over all entities (small-scale cross-check
-    for the sampled objective; also usable as a trainable mode). Routes
-    through the fused Pallas kernel under the same policy as loglinear."""
+    for the sampled objective; also usable as a trainable mode)."""
     del rng
-    from sert_tpu.models.loglinear import _use_fused
     reps = window_rep(params, batch["windows"], batch["lengths"], cfg)
-    if _use_fused(cfg):
-        from sert_tpu.ops.xent import xent_loss
-        zeros_b = jnp.zeros((cfg.num_entities,), jnp.float32)
-        total = xent_loss(reps.astype(jnp.float32), params["entity_emb"],
-                          zeros_b, batch["entities"], "ed",
-                          dtype=cfg.compute_dtype)
-        return total / batch["windows"].shape[0]
     ct = compute_dtype(cfg)
     z = jnp.dot(reps.astype(ct), params["entity_emb"].astype(ct).T,
                 preferred_element_type=jnp.float32)                     # [B, E]

@@ -1,7 +1,7 @@
 """Exact top-k via bin-max prefilter + gather-rescore.
 
 Algorithm (k-th value = theta, assuming no score ties at theta):
-  1. bins = score_binmax(R, M, ...)            # [Q, E/128], Pallas-fused
+  1. bins = score_binmax(R, M, ...)            # [Q, E/128], fused sweep
   2. Every bin containing a true top-k element has bin-max >= theta, and at
      most k bins have max >= theta (each such bin contributes >= 1 element
      >= theta, of which there are exactly k). Hence the top-k bins BY MAX
@@ -10,9 +10,10 @@ Algorithm (k-th value = theta, assuming no score ties at theta):
      bin and boundary ties), gather ONLY those bins' entity vectors, rescore
      exactly (fp32), and run one small top-k over [Q, (k+pad)*128].
 
-Cost: one matmul-bound Pallas sweep + one top-k over E/128 bins + one
-gather of (k+pad)*128 rows/query — measured ~20x faster end-to-end than
-XLA's TopK over the full score row at E=1M (benchmarks/NOTES.md).
+Cost: one sweep that reads the entity matrix once + one top-k over E/128
+bins + one gather of (k+pad)*128 rows per query. The gather grows with k:
+at depth 1000 it reads ~1000*128 fp32 rows per query, which is why the
+engine choice (sert_tpu/engines.py) looks at k.
 
 Precision caveat (in addition to the exact-tie caveat below): the DEFAULT
 prefilter multiplies in bf16, so "exact" holds for score margins above bf16
@@ -21,9 +22,9 @@ tightly clustered trained embeddings — boundary elements can be missed even
 though the RETURNED scores are fp32-honest. Mitigations, in cost order:
 ``pad_bins`` (default 12) absorbs boundary reshuffles; and
 ``prepare_entities(..., prefilter_dtype="float32")`` makes the prefilter
-full-precision (slower MXU passes, 2x prefilter memory). Note the XLA
-"fp32" dense oracle on TPU itself multiplies in bf16 passes at DEFAULT
-precision — the engines disagree only against a HIGHEST-precision oracle.
+full-precision (2x prefilter memory). The rescore multiplies in fp32 at
+``precision=HIGHEST``: on a GPU a DEFAULT-precision fp32 product may run
+in TF32 and carry ~1e-3 relative error into the "exact" scores.
 
 Tie caveat: if MORE than ``pad`` bins tie exactly at theta beyond the k-th,
 an element could be missed; with continuous scores this has measure zero,
@@ -45,7 +46,9 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from sert_tpu.ops.score_binmax import (LANES, _pad_to, prepare_binmax_matrix,
+from sert_tpu import engines
+from sert_tpu.ops.score_binmax import (LANES, SPAN, _pad_to, binmax_reference,
+                                       prepare_binmax_matrix,
                                        score_binmax_prepared)
 
 
@@ -56,12 +59,12 @@ class PreparedEntities(NamedTuple):
     them as compile-time constants. ``te`` records the entity-tile size Mp
     was padded for; the sweep MUST use the same value (score_binmax_prepared
     validates), otherwise grid flooring would silently skip the tail rows."""
-    Mp: jax.Array        # [Ep, dp] bf16, padded for the Pallas sweep
+    Mp: jax.Array        # [Ep, dp] bf16, padded for the sweep
     M_binned: jax.Array  # [n_bins, bin_width, d] rescore-dtype, contiguous
     num_entities: int
     dim: int
     bin_width: int = LANES
-    te: int = 4096
+    te: int = SPAN
     # layout="clustered": row r of the staged matrix is M[perm[r]] — similar
     # entities made bin-adjacent so one query's winners span FEWER bins
     # (adaptive_bins exploits this; indices are mapped back on return).
@@ -87,12 +90,12 @@ def _cluster_order(M: jax.Array, n_clusters: Optional[int] = None,
     concentrates a query's winners into few BINS if a cluster is about one
     bin wide. A fixed 256 clusters measured well at E=50k (~1.5 bins per
     cluster: 76 -> 50 mean winner-bins) but did NOTHING at E=1M (each
-    cluster spanned ~30 bins; 92 -> 94 mean winner-bins, layout_bench.py).
+    cluster spanned ~30 bins; 92 -> 94 mean winner-bins).
     Measured follow-up (round 3): the ~E/128 default does NOT rescue the
     trained 1M hard-mode matrix either (8192 clusters: 92.2 -> 94.9 mean
     winner-bins) — there the spread is intrinsic, a query's top-100 being
     dominated by scattered singletons rather than sibling clusters, so the
-    layout stays a 50k-regime tool; see benchmarks/NOTES.md."""
+    layout stays a 50k-regime tool."""
     E, d = M.shape
     if n_clusters is None:
         n_clusters = min(8192, max(256, E // LANES))
@@ -134,38 +137,14 @@ def _cluster_order(M: jax.Array, n_clusters: Optional[int] = None,
     return jnp.argsort(assign, stable=True).astype(jnp.int32)
 
 
-# "auto" rescore dtype: fp32 until the staged fp32 rescore copy alone
-# would exceed this many bytes, then bf16. 2 GiB keeps every measured
-# config through E=1M/d=128 (0.5 GB) on the fp32 default while the 10M
-# training-then-scoring geometry (5.1 GB fp32 copy, which OOMed 16 GB HBM
-# next to the just-trained params — round-5 10M run) drops to bf16, the
-# dtype the 10M scoring benchmark always ran at (benchmarks/sharded_bench).
-RESCORE_AUTO_FP32_LIMIT = 2 << 30
-
-
-def resolve_rescore_dtype(choice: str, num_entities: int, dim: int) -> str:
-    """Resolve a ScoreConfig.rescore_dtype of "auto" against the staging
-    footprint: "float32" below RESCORE_AUTO_FP32_LIMIT staged bytes, else
-    "bfloat16". Explicit choices pass through (validated)."""
-    if choice == "auto":
-        return ("bfloat16"
-                if num_entities * dim * 4 > RESCORE_AUTO_FP32_LIMIT
-                else "float32")
-    if choice not in ("float32", "bfloat16"):
-        raise ValueError(f"unknown rescore_dtype {choice!r}")
-    return choice
-
-
-def prepare_entities(M: jax.Array, te: int = 4096,
+def prepare_entities(M: jax.Array, te: int = SPAN,
                      rescore_dtype: str = "float32",
                      prefilter_dtype: str = "bfloat16",
                      bin_width: int = LANES,
                      layout: str = "natural") -> PreparedEntities:
     """``bin_width``: entities per prefilter/rescore bin. The exactness
     argument is width-independent (top-k spans <= k+pad bins either way);
-    64 halves the rescore gather bytes vs 128 but ALSO halves the gather's
-    DMA block to 16KB, dropping effective bandwidth ~40% — measured a wash
-    at E=1M, so 128 stays the default (benchmarks/NOTES.md).
+    64 halves the rescore gather bytes of 128 at twice the bins.
 
     ``layout="clustered"`` permutes rows so directionally-similar entities
     share bins (coarse spherical k-means order; the permutation is undone
@@ -190,9 +169,9 @@ def prepare_entities(M: jax.Array, te: int = 4096,
 
 def hierarchical_topk(x: jax.Array, k: int, m: Optional[int] = None,
                       group: int = 128) -> Tuple[jax.Array, jax.Array]:
-    """Exact top-k over x [Q, N], ~5x faster than flat lax.top_k for large N.
+    """Exact top-k over x [Q, N] by per-group top-m, then one small merge.
 
-    Per-group top-m, then one small merge. A group deeper than its top-m can
+    A group deeper than its top-m can
     hide a winner only if its m-th value >= the merged k-th value; the
     condition is checked exactly and the rare hit (>= m true winners packed
     into one group) falls back to the flat top_k via lax.cond — results are
@@ -227,28 +206,21 @@ def hierarchical_topk(x: jax.Array, k: int, m: Optional[int] = None,
     return jax.lax.cond(suspect, flat, lambda _: (top_s, top_i), None)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "pad_bins", "tq",
-                                             "interpret", "fused_rescore",
-                                             "adaptive_bins"))
 def exact_topk_prepared(R: jax.Array, prep: PreparedEntities,
                         bias: Optional[jax.Array] = None,
                         alpha: Optional[jax.Array] = None,
                         k: int = 100, pad_bins: int = 12,
-                        tq: int = 256,
+                        sweep: Optional[str] = None,
                         interpret: Optional[bool] = None,
-                        fused_rescore: bool = True,
                         adaptive_bins: int = 0,
                         ) -> Tuple[jax.Array, jax.Array]:
     """(scores [Q, k], entity indices [Q, k]) of R @ M^T (+ alpha*bias).
 
-    Performance notes (measured on TPU v5 lite, E=1M, Q=256, k=100, see
-    benchmarks/NOTES.md): the default rescore is the fused Pallas
-    gather_rescore kernel (candidate vectors never reach HBM; ~4x faster
-    than the best XLA gather). ``fused_rescore=False`` falls back to an XLA
-    bin-row gather with promise_in_bounds + optimization_barrier (itself
-    ~8x faster than a naive per-entity gather). The entity matrix must be
-    staged ONCE via prepare_entities — re-casting 512MB per call costs more
-    than the sweep.
+    ``sweep``: "triton" (the fused kernel, ops/score_binmax.py) or "xla"
+    (the same arithmetic left to XLA); None lets engines.binmax_sweep
+    choose. The rescore is an XLA bin-row gather with promise_in_bounds +
+    optimization_barrier. The entity matrix must be staged ONCE via
+    prepare_entities: re-casting it per call costs more than the sweep.
 
     ``adaptive_bins=na`` (0 < na < k+pad_bins) makes the rescore two-phase:
     rescore only the top ``na`` bins, take the provisional k-th value
@@ -262,8 +234,20 @@ def exact_topk_prepared(R: jax.Array, prep: PreparedEntities,
     caveat) so a near-theta bin falls back to the full rescore instead of
     being silently skipped.
     """
-    from sert_tpu.ops.gather_rescore import QB, gather_rescore
+    # Resolved before jit: the choice must key the compile cache.
+    interpret = engines.interpret_default(interpret)
+    if sweep is None:
+        sweep = "triton" if interpret else engines.binmax_sweep()
+    return _exact_topk_prepared(R, prep, bias, alpha, k=k,
+                                pad_bins=pad_bins, sweep=sweep,
+                                interpret=interpret,
+                                adaptive_bins=adaptive_bins)
 
+
+@functools.partial(jax.jit, static_argnames=("k", "pad_bins", "sweep",
+                                             "interpret", "adaptive_bins"))
+def _exact_topk_prepared(R, prep, bias, alpha, *, k, pad_bins, sweep,
+                         interpret, adaptive_bins):
     Q, d = R.shape
     E = prep.num_entities
     bw = prep.bin_width
@@ -283,17 +267,20 @@ def exact_topk_prepared(R: jax.Array, prep: PreparedEntities,
 
     # The sweep tile size comes from the prep stage (prep.te): a mismatched
     # te would floor the grid and silently skip the tail entity rows.
-    bins = score_binmax_prepared(R, prep.Mp, E, bias, alpha,
-                                 tq=tq, te=prep.te, interpret=interpret,
-                                 bin_width=bw)
+    if sweep == "triton":
+        bins = score_binmax_prepared(
+            R, prep.Mp, E, bias, alpha, te=prep.te, bin_width=bw,
+            interpret=interpret)
+    elif sweep == "xla":
+        bins = binmax_reference(R, prep.Mp, E, bias, alpha, bin_width=bw)
+    else:
+        raise ValueError(f"unknown sweep {sweep!r}")
     nb_total = bins.shape[1]
     nb = min(k + pad_bins, nb_total)
 
     # Bins selection: hierarchical with m=16 (top-16 per 128-bin group +
-    # verified-exact fallback). Round-1 used flat top_k because m=8 fired
-    # the fallback too often at nb~116 winners / 61 groups; m=16 over the
-    # (2x longer at bin_width=64) bins array measures ~0.5 ms faster than
-    # flat and the fallback stays rare (NOTES.md round-2 row).
+    # verified-exact fallback); m=8 fired the fallback too often at
+    # nb~116 winners over 61 groups.
     bin_vals, bin_idx = hierarchical_topk(bins, nb, m=16)    # [Q, nb]
 
     def rescore_select(nbx: int):
@@ -303,19 +290,13 @@ def exact_topk_prepared(R: jax.Array, prep: PreparedEntities,
                    + jnp.arange(bw)[None, None, :]).reshape(Q, nbx * bw)
         valid = ent_idx < E
 
-        if fused_rescore:
-            q_pad = (-Q) % QB
-            Rp = jnp.pad(R, ((0, q_pad), (0, 0)))
-            ip = jnp.pad(bi, ((0, q_pad), (0, 0)))
-            sc = gather_rescore(Rp, prep.M_binned, ip,
-                                interpret=interpret)[:Q]     # [Q, nbx*bw]
-        else:
-            safe_idx = jax.lax.optimization_barrier(bi)
-            Mg = prep.M_binned.at[safe_idx].get(
-                mode="promise_in_bounds")                    # [Q, nbx, bw, d]
-            Mg = Mg.reshape(Q, nbx * bw, d)
-            sc = jnp.einsum("qd,qnd->qn", R.astype(Mg.dtype), Mg,
-                            preferred_element_type=jnp.float32)
+        safe_idx = jax.lax.optimization_barrier(bi)
+        Mg = prep.M_binned.at[safe_idx].get(
+            mode="promise_in_bounds")                        # [Q, nbx, bw, d]
+        Mg = Mg.reshape(Q, nbx * bw, d)
+        sc = jnp.einsum("qd,qnd->qn", R.astype(Mg.dtype), Mg,
+                        preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
 
         if bias is not None:    # already in staged order (permuted above)
             a = (alpha if alpha is not None
@@ -364,11 +345,11 @@ def exact_topk(R: jax.Array, M: jax.Array,
                bias: Optional[jax.Array] = None,
                alpha: Optional[jax.Array] = None,
                k: int = 100, pad_bins: int = 12,
-               tq: int = 256, te: int = 4096,
+               te: int = SPAN, sweep: Optional[str] = None,
                interpret: Optional[bool] = None,
                rescore_dtype: str = "float32",
                ) -> Tuple[jax.Array, jax.Array]:
     """One-shot convenience: prepare_entities + exact_topk_prepared."""
     prep = prepare_entities(M, te=te, rescore_dtype=rescore_dtype)
     return exact_topk_prepared(R, prep, bias, alpha, k=k, pad_bins=pad_bins,
-                               tq=tq, interpret=interpret)
+                               sweep=sweep, interpret=interpret)

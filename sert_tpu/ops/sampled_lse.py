@@ -1,4 +1,4 @@
-"""Fused masked log-sum-exp over shared sampled-softmax candidates.
+"""Flash masked log-sum-exp over shared sampled-softmax candidates.
 
 The sampled-softmax LSE objective (models/lse.loss_sampled_softmax;
 SURVEY.md section 3.1, the sampled objective row) scores every in-batch
@@ -8,38 +8,31 @@ positive against ONE shared candidate set:
                        - s_pos_i )
 
 Composed in XLA this materializes the [B, k] candidate logits in fp32
-three times (fwd, the accidental-hit where/concat copies, grad) — at the
-flagship negative counts that is the step's HBM bill: B=4096, k=16384 is
-a 268MB logits array and ~2GB of fwd+bwd traffic per micro-step, and the
-measured 1M-entity train throughput drops 108 -> 57 steps/s as k climbs
-1024 -> 16384 (benchmarks/NOTES.md, round-4 negatives ladder) while the
-MXU work stays nearly free.
+several times per step (forward, the accidental-hit select, the softmax
+gradient): at B=4096, k=32768 each copy is 512 MB. These kernels are the
+flash-attention treatment of that loss, written for Pallas on the Triton
+route: the [B, k] logits never exist in device memory.
 
-These kernels are the flash-xent treatment of that loss (same design as
-ops/xent.py, which owns the FULL-softmax case): the [B, k] logits never
-exist in HBM.
+  forward:  grid (B / BB, S). Each program keeps a [BB, d] tile of
+            query representations and walks its share (1/S) of the
+            candidates in BK-row tiles: one dot with fp32 accumulation,
+            the accidental-hit and padding mask applied in the tile, an
+            online (max, sumexp) update. The S partials per row merge in
+            XLA ([S, B] floats). S splits the candidate axis so that B=4096
+            still yields enough programs to fill the card.
+  backward: two kernels, each recomputing its logits tile and forming
+            p = g_i * exp(z_ij - lse_i) (g is the per-row cotangent):
+            ``dreps`` over batch blocks (again split S ways over the
+            candidates, partials summed in XLA) and ``dcand``/``dcorr``
+            over candidate blocks, each looping over the whole batch.
+            No atomics: every output element has one writer, so results
+            are deterministic.
 
-  forward:  grid (B/tb, ceil(k/te)); one logits tile in VMEM per step
-            (bf16 MXU matmul, fp32 accumulation), the accidental-hit mask
-            applied IN the tile from the candidate-id / positive-id
-            blocks, per-tile (max, sumexp) partials out — O(B * k/te).
-  backward: ONE fused sweep, grid (j, i) with the batch axis innermost:
-            recomputes the logits tile, forms p = g_i * exp(z - lse_i)
-            in VMEM once (g is the PER-ROW upstream cotangent — the
-            softplus derivative — unlike xent's scalar-sum case), and
-            feeds all three grads: dC accumulates in the revisited per-j
-            VMEM block, dcorr alongside it, and dreps row stripes
-            accumulate in a VMEM-resident [Bp, d] output block (HBM
-            transient fallback when over the VMEM plan, exactly like
-            ops/xent).
-
-The candidate axis is consumed unpadded via OOB tail tiles (col >= k
-masked to -1e30, W contents zeroed before the dreps contraction — same
-rules as ops/xent.py's entity axis). Exposed as ``sampled_lse`` with a
-custom VJP; gradient parity vs the XLA composition is tested in
-interpret mode (tests/test_ops.py) and the model integration keeps the
-XLA fallback (ModelConfig.fused_softmax, same knob as the full-softmax
-families).
+Masked logits are -1e30 (finite), never -inf: a fully masked tile must not
+turn the online update into inf - inf. A row whose every candidate is
+masked returns ~-1e30, so softplus(out - s_pos) gives loss and gradient 0.
+:func:`sampled_lse_reference` is the plain XLA composition these kernels
+are tested and timed against.
 """
 
 from __future__ import annotations
@@ -50,224 +43,242 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from sert_tpu.ops.score_binmax import LANES, _pad_to
-from sert_tpu.ops.xent import (
-    _accum_dpool_ok,
-    _ct,
-    _interpret_default,
-    _resolve_te,
-)
+from sert_tpu import engines
+from sert_tpu.ops.score_binmax import _pad_to, padded_dim
 
-
-def _z_tile(r_ref, c_ref, corr_ref, ids_ref, pos_ref, j, *, te, k_total, ct):
-    """One corrected-logits tile [tb, te] in fp32: r . c^T - corr, with OOB
-    candidate columns (col >= k_total) AND accidental hits (candidate id ==
-    the row's positive id) forced to -1e30 so they lose every max and
-    vanish under exp."""
-    r = r_ref[:]
-    c = c_ref[:].astype(ct)
-    z = jnp.dot(r, c.T, preferred_element_type=jnp.float32)      # [tb, te]
-    z = z - corr_ref[:]                                          # [1, te]
-    cols = j * te + jax.lax.broadcasted_iota(jnp.int32, z.shape, 1)
-    hit = ids_ref[:] == pos_ref[:]                               # [tb, te]
-    return jnp.where((cols < k_total) & ~hit, z, -1e30)
+NEG = -1e30
+BLOCK_B = 64          # batch rows per forward / dreps program
+BLOCK_K = 128         # candidate rows per forward loop tile
+BLOCK_K_BWD = 64      # candidate rows per dreps loop tile / dcand program
+BLOCK_B_BWD = 64      # batch rows per dcand loop tile
+TARGET_PROGRAMS = 512  # forward / dreps programs to aim for (132 SMs)
 
 
-def _fwd_kernel(r_ref, c_ref, corr_ref, ids_ref, pos_ref, m_ref, s_ref, *,
-                te, k_total, ct):
-    j = pl.program_id(1)
-    z = _z_tile(r_ref, c_ref, corr_ref, ids_ref, pos_ref, j, te=te,
-                k_total=k_total, ct=ct)
-    m = jnp.max(z, axis=-1)                                      # [tb]
-    s = jnp.sum(jnp.exp(z - m[:, None]), axis=-1)                # [tb]
-    m_ref[0, 0, :] = m
-    s_ref[0, 0, :] = s
+def _ct(dtype: str):
+    return jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
 
 
-def _bwd_kernel(r_ref, c_ref, corr_ref, ids_ref, pos_ref, lse_ref, g_ref,
-                dc_ref, dcorr_ref, dr_ref, *, te, k_total, ct,
-                accum_dr=False, tb=0):
-    """One fused backward sweep, grid (j, i) with i (batch) innermost.
-
-    p = g_i * exp(z_ij - lse_i): the masked tiles carry z = -1e30, so
-    exp(z - lse) underflows to exactly 0 for every real row (lse >> -1e30);
-    rows that must not contribute (batch padding) arrive with lse poisoned
-    to 1e30 AND g = 0, covering the degenerate all-masked-row case where
-    lse itself is ~-1e30 (there exp(z - lse) is O(1) but g — the softplus
-    sigmoid at -1e30 — is exactly 0 in fp32).
-    """
-    j, i = pl.program_id(0), pl.program_id(1)
-    z = _z_tile(r_ref, c_ref, corr_ref, ids_ref, pos_ref, j, te=te,
-                k_total=k_total, ct=ct)
-    p = g_ref[:] * jnp.exp(z - lse_ref[:])                       # [tb, te]
-    pc = p.astype(ct)
-    r = r_ref[:]
-    # Zero unspecified OOB tail-tile candidate contents before the dreps
-    # contraction (0 * NaN = NaN would leak); dC/dcorr are safe — p is
-    # exactly 0 on invalid columns and they contract over rows.
-    c = c_ref[:].astype(ct)
-    crows = j * te + jax.lax.broadcasted_iota(jnp.int32, c.shape, 0)
-    cz = jnp.where(crows < k_total, c, jnp.zeros((), ct))
-    dc = jnp.dot(pc.T, r, preferred_element_type=jnp.float32)    # [te, dp]
-    dcorr = -jnp.sum(p, axis=0)[None, :]                         # [1, te]
-    drow = jnp.dot(pc, cz, preferred_element_type=jnp.float32)   # [tb, dp]
-
-    if accum_dr:
-        rows = pl.ds(i * tb, tb)
-
-        @pl.when(j == 0)
-        def _():
-            dr_ref[rows, :] = drow
-
-        @pl.when(j > 0)
-        def _():
-            dr_ref[rows, :] += drow
-    else:
-        dr_ref[0] = drow
-
-    @pl.when(i == 0)
-    def _():
-        dc_ref[:] = dc
-        dcorr_ref[:] = dcorr
-
-    @pl.when(i > 0)
-    def _():
-        dc_ref[:] += dc
-        dcorr_ref[:] += dcorr
+def _params(num_warps: int = 4, num_stages: int = 3):
+    return plgpu.CompilerParams(num_warps=num_warps, num_stages=num_stages)
 
 
-def _row_spec(tb):
-    return pl.BlockSpec((tb, 1), lambda j, i: (i, 0), memory_space=pltpu.VMEM)
+def _logits(r, c, corr, ids, pos, col0, k_total):
+    """[rows, cols] corrected logits of one tile, fp32, with padding
+    columns and accidental hits (candidate id == the row's positive id)
+    forced to NEG."""
+    z = pl.dot(r, c, trans_b=True) - corr[None, :]
+    cols = col0 + jnp.arange(c.shape[0])
+    keep = (cols[None, :] < k_total) & (ids[None, :] != pos[:, None])
+    return jnp.where(keep, z, NEG)
 
 
-def _prep(reps, cand, corr, cand_ids, pos_ids, tb, te, ct):
-    """Pad the small operands (reps rows to tb, the shared d axis to LANES,
-    corr/candidate-ids to the tile grid, positive ids to tb). The candidate
-    matrix keeps its storage dtype and its candidate axis unpadded (OOB
-    tail tiles; in-VMEM tile casts) — same contract as ops/xent._prep."""
-    B_orig, K_orig = reps.shape[0], cand.shape[0]
-    reps = _pad_to(_pad_to(reps.astype(ct), 0, tb), 1, LANES)
-    cand = _pad_to(cand, 1, LANES)
-    nK = -(-K_orig // te)
-    corr_p = _pad_to(corr.astype(jnp.float32)[None, :], 1, te)
-    ids_p = _pad_to(cand_ids.astype(jnp.int32)[None, :], 1, te, value=-1)
-    if corr_p.shape[1] != nK * te:
-        corr_p = jnp.pad(corr_p, ((0, 0), (0, nK * te - corr_p.shape[1])))
-        ids_p = jnp.pad(ids_p, ((0, 0), (0, nK * te - ids_p.shape[1])),
-                        constant_values=-1)
-    pos_p = _pad_to(pos_ids.astype(jnp.int32), 0, tb, value=-1)
-    return reps, cand, corr_p, ids_p, pos_p, B_orig, K_orig
+def _fwd_kernel(r_ref, c_ref, corr_ref, ids_ref, pos_ref, m_ref, l_ref, *,
+                k_total, block_k):
+    r, pos = r_ref[...], pos_ref[...]
+    span = c_ref.shape[0]
+    base = pl.program_id(1) * span
+
+    def body(t, carry):
+        m, l = carry
+        rows = pl.ds(t * block_k, block_k)
+        z = _logits(r, c_ref[rows, :], corr_ref[rows], ids_ref[rows], pos,
+                    base + t * block_k, k_total)
+        m_new = jnp.maximum(m, jnp.max(z, axis=1))
+        l = l * jnp.exp(m - m_new) + jnp.sum(jnp.exp(z - m_new[:, None]),
+                                             axis=1)
+        return m_new, l
+
+    init = (jnp.full((r.shape[0],), NEG, jnp.float32),
+            jnp.zeros((r.shape[0],), jnp.float32))
+    m, l = jax.lax.fori_loop(0, span // block_k, body, init)
+    m_ref[...] = m
+    l_ref[...] = l
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8))
+def _dreps_kernel(r_ref, c_ref, corr_ref, ids_ref, pos_ref, lse_ref, g_ref,
+                  dr_ref, *, k_total, block_k):
+    r, pos = r_ref[...], pos_ref[...]
+    lse, g = lse_ref[...], g_ref[...]
+    span = c_ref.shape[0]
+    base = pl.program_id(1) * span
+
+    def body(t, acc):
+        rows = pl.ds(t * block_k, block_k)
+        c = c_ref[rows, :]
+        z = _logits(r, c, corr_ref[rows], ids_ref[rows], pos,
+                    base + t * block_k, k_total)
+        p = g[:, None] * jnp.exp(z - lse[:, None])
+        return acc + pl.dot(p.astype(c.dtype), c)
+
+    acc = jnp.zeros(dr_ref.shape, jnp.float32)
+    dr_ref[...] = jax.lax.fori_loop(0, span // block_k, body, acc)
+
+
+def _dcand_kernel(r_ref, c_ref, corr_ref, ids_ref, pos_ref, lse_ref, g_ref,
+                  dc_ref, dcorr_ref, *, k_total, block_b):
+    c, corr, ids = c_ref[...], corr_ref[...], ids_ref[...]
+    col0 = pl.program_id(0) * c.shape[0]
+
+    def body(t, carry):
+        dc, dcorr = carry
+        rows = pl.ds(t * block_b, block_b)
+        r = r_ref[rows, :]
+        z = _logits(r, c, corr, ids, pos_ref[rows], col0, k_total)
+        p = g_ref[rows][:, None] * jnp.exp(z - lse_ref[rows][:, None])
+        return (dc + pl.dot(p.astype(r.dtype), r, trans_a=True),
+                dcorr - jnp.sum(p, axis=0))
+
+    init = (jnp.zeros(dc_ref.shape, jnp.float32),
+            jnp.zeros(dcorr_ref.shape, jnp.float32))
+    dc, dcorr = jax.lax.fori_loop(0, r_ref.shape[0] // block_b, body, init)
+    dc_ref[...] = dc
+    dcorr_ref[...] = dcorr
+
+
+def _layout(B: int, K: int):
+    """(Bp, splits, span, Kp): padded batch, candidate splits, candidates
+    per split, padded candidate count."""
+    Bp = B + (-B) % BLOCK_B
+    n_tiles = -(-K // BLOCK_K)
+    want = -(-TARGET_PROGRAMS // (Bp // BLOCK_B))
+    splits = min(pl.next_power_of_2(want), n_tiles)
+    span = -(-n_tiles // splits) * BLOCK_K
+    return Bp, splits, span, splits * span
+
+
+def _prep(reps, cand, corr, cand_ids, pos_ids, dtype):
+    """Cast to the compute dtype and pad: batch rows to BLOCK_B, the
+    candidate axis to the split layout (padding is masked in-kernel by
+    column index), the shared width to a power of two."""
+    ct = _ct(dtype)
+    B, K = reps.shape[0], cand.shape[0]
+    Bp, splits, span, Kp = _layout(B, K)
+    dp = padded_dim(reps.shape[1])
+    reps_p = _pad_to(_pad_to(reps.astype(ct), 1, dp), 0, Bp)
+    cand_p = _pad_to(_pad_to(cand.astype(ct), 1, dp), 0, Kp)
+    corr_p = _pad_to(corr.astype(jnp.float32), 0, Kp)
+    ids_p = _pad_to(cand_ids.astype(jnp.int32), 0, Kp, value=-1)
+    pos_p = _pad_to(pos_ids.astype(jnp.int32), 0, Bp, value=-1)
+    return reps_p, cand_p, corr_p, ids_p, pos_p, splits, span
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6))
 def sampled_lse(reps: jax.Array, cand: jax.Array, corr: jax.Array,
                 cand_ids: jax.Array, pos_ids: jax.Array,
-                tb: int = 256, te: Optional[int] = None,
-                interpret: Optional[bool] = None,
-                dtype: str = "float32") -> jax.Array:
+                dtype: str = "float32",
+                interpret: Optional[bool] = None) -> jax.Array:
     """[B] masked log-sum-exp over the shared candidate set:
 
         out_i = logsumexp_j { reps_i . cand_j - corr_j : cand_ids_j != pos_ids_i }
 
-    reps [B, d] fp32; cand [k, d] (storage dtype kept; tiles cast in VMEM);
-    corr fp32 [k]; cand_ids/pos_ids int32. A row whose every candidate is
-    masked returns ~-1e30 (so softplus(out - s_pos) -> 0 loss, gradient 0).
-    ``dtype="bfloat16"`` runs the matmuls as bf16 MXU passes with fp32
-    accumulation — same numeric class as ops/xent's dtype knob."""
-    out, _ = _slse_fwd(reps, cand, corr, cand_ids, pos_ids, tb, te,
-                       interpret, dtype)
+    reps [B, d]; cand [k, d]; corr fp32 [k]; cand_ids/pos_ids int32.
+    ``dtype="bfloat16"`` runs both matmuls on bf16 operands with fp32
+    accumulation; "float32" keeps fp32 operands. GPU only, unless
+    ``interpret`` (or engines.interpret_kernels) asks for the
+    interpreter."""
+    out, _ = _slse_fwd(reps, cand, corr, cand_ids, pos_ids, dtype,
+                       interpret)
     return out
 
 
-def _slse_fwd(reps, cand, corr, cand_ids, pos_ids, tb, te, interpret, dtype):
-    if interpret is None:
-        interpret = _interpret_default()
-    ct = _ct(dtype)
-    d_orig = reps.shape[1]
-    te = _resolve_te(te, d_orig)
-    reps_p, cand_k, corr_p, ids_p, pos_p, B, K = _prep(
-        reps, cand, corr, cand_ids, pos_ids, tb, te, ct)
+def _slse_fwd(reps, cand, corr, cand_ids, pos_ids, dtype, interpret):
+    interpret = engines.interpret_default(interpret)
+    engines.require_kernel_backend(interpret, "sampled_lse")
+    B = reps.shape[0]
+    reps_p, cand_p, corr_p, ids_p, pos_p, splits, span = _prep(
+        reps, cand, corr, cand_ids, pos_ids, dtype)
     Bp, dp = reps_p.shape
-    nB, nK = Bp // tb, -(-K // te)
-
-    r_spec = pl.BlockSpec((tb, dp), lambda i, j: (i, 0),
-                          memory_space=pltpu.VMEM)
-    c_spec = pl.BlockSpec((te, dp), lambda i, j: (j, 0),
-                          memory_space=pltpu.VMEM)
-    k_spec = pl.BlockSpec((1, te), lambda i, j: (0, j),
-                          memory_space=pltpu.VMEM)
-    pos_spec = pl.BlockSpec((tb, 1), lambda i, j: (i, 0),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, 1, tb), lambda i, j: (j, 0, i),
-                            memory_space=pltpu.VMEM)
-    m, s = pl.pallas_call(
-        functools.partial(_fwd_kernel, te=te, k_total=K, ct=ct),
-        grid=(nB, nK),
-        in_specs=[r_spec, c_spec, k_spec, k_spec, pos_spec],
-        out_specs=[out_spec, out_spec],
-        out_shape=[jax.ShapeDtypeStruct((nK, 1, Bp), jnp.float32)] * 2,
+    cand_spec = pl.BlockSpec((span, dp), lambda i, s: (s, 0))
+    col_spec = pl.BlockSpec((span,), lambda i, s: (s,))
+    row_spec = pl.BlockSpec((BLOCK_B,), lambda i, s: (i,))
+    part_spec = pl.BlockSpec((None, BLOCK_B), lambda i, s: (s, i))
+    m, l = pl.pallas_call(
+        functools.partial(_fwd_kernel, k_total=cand.shape[0],
+                          block_k=BLOCK_K),
+        grid=(Bp // BLOCK_B, splits),
+        in_specs=[pl.BlockSpec((BLOCK_B, dp), lambda i, s: (i, 0)),
+                  cand_spec, col_spec, col_spec, row_spec],
+        out_specs=[part_spec, part_spec],
+        out_shape=[jax.ShapeDtypeStruct((splits, Bp), jnp.float32)] * 2,
+        backend="triton",
+        compiler_params=_params(),
         interpret=interpret,
-    )(reps_p, cand_k, corr_p, ids_p, pos_p[:, None])
-    m, s = m[:, 0, :], s[:, 0, :]                        # [nK, Bp]
-    M = jnp.max(m, axis=0)                               # [Bp]
-    lse = M + jnp.log(jnp.sum(s * jnp.exp(m - M[None, :]), axis=0))
-    residuals = (reps_p, cand_k, corr_p, ids_p, pos_p, lse, B, K, d_orig)
+        name="sampled_lse_fwd",
+    )(reps_p, cand_p, corr_p, ids_p, pos_p)
+    mx = jnp.max(m, axis=0)
+    lse = mx + jnp.log(jnp.sum(l * jnp.exp(m - mx[None, :]), axis=0))
+    # A zero-size array carries cand's dtype (residuals hold JAX types).
+    residuals = (reps_p, cand_p, corr_p, ids_p, pos_p, lse, reps.shape,
+                 cand.shape, jnp.zeros((0,), cand.dtype), splits, span)
     return lse[:B], residuals
 
 
-def _slse_bwd(tb, te, interpret, dtype, residuals, g):
-    if interpret is None:
-        interpret = _interpret_default()
-    ct = _ct(dtype)
-    reps_p, cand_k, corr_p, ids_p, pos_p, lse, B, K, d_orig = residuals
-    te = _resolve_te(te, reps_p.shape[1])
+def _slse_bwd(dtype, interpret, residuals, g):
+    interpret = engines.interpret_default(interpret)
+    (reps_p, cand_p, corr_p, ids_p, pos_p, lse, reps_shape, cand_shape,
+     cand_like, splits, span) = residuals
+    (B, d), K = reps_shape, cand_shape[0]
     Bp, dp = reps_p.shape
-    nB, nK = Bp // tb, -(-K // te)
-    Kp = nK * te
+    Kp = cand_p.shape[0]
+    # Padded batch rows contribute nothing: zero cotangent and a poisoned
+    # lse make p exactly 0 there (0 * exp(z - 1e30)).
+    valid = jnp.arange(Bp) < B
+    lse_m = jnp.where(valid, lse, 1e30)
+    g_p = _pad_to(g.astype(jnp.float32), 0, Bp)
+    operands = (reps_p, cand_p, corr_p, ids_p, pos_p, lse_m, g_p)
 
-    # Padded batch rows contribute zero grad: poison their lse AND zero
-    # their upstream cotangent (see _bwd_kernel's docstring for why both).
-    row = jnp.arange(Bp)
-    lse_m = jnp.where(row < B, lse, 1e30)[:, None]               # [Bp, 1]
-    g_p = jnp.zeros((Bp,), jnp.float32).at[:B].set(
-        g.astype(jnp.float32))[:, None]                          # [Bp, 1]
-
-    r_spec = pl.BlockSpec((tb, dp), lambda j, i: (i, 0),
-                          memory_space=pltpu.VMEM)
-    c_spec = pl.BlockSpec((te, dp), lambda j, i: (j, 0),
-                          memory_space=pltpu.VMEM)
-    k_spec = pl.BlockSpec((1, te), lambda j, i: (0, j),
-                          memory_space=pltpu.VMEM)
-    accum = _accum_dpool_ok(Bp, dp, te)
-    if accum:
-        dr_spec = pl.BlockSpec((Bp, dp), lambda j, i: (0, 0),
-                               memory_space=pltpu.VMEM)
-        dr_shape = jax.ShapeDtypeStruct((Bp, dp), jnp.float32)
-    else:
-        dr_spec = pl.BlockSpec((1, tb, dp), lambda j, i: (j, i, 0),
-                               memory_space=pltpu.VMEM)
-        dr_shape = jax.ShapeDtypeStruct((nK, Bp, dp), jnp.float32)
-    dC, dcorr, drp = pl.pallas_call(
-        functools.partial(_bwd_kernel, te=te, k_total=K, ct=ct,
-                          accum_dr=accum, tb=tb),
-        grid=(nK, nB),
-        in_specs=[r_spec, c_spec, k_spec, k_spec, _row_spec(tb),
-                  _row_spec(tb), _row_spec(tb)],
-        out_specs=[pl.BlockSpec((te, dp), lambda j, i: (j, 0),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((1, te), lambda j, i: (0, j),
-                                memory_space=pltpu.VMEM),
-                   dr_spec],
-        out_shape=[jax.ShapeDtypeStruct((Kp, dp), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Kp), jnp.float32),
-                   dr_shape],
+    row_spec = pl.BlockSpec((BLOCK_B,), lambda i, s: (i,))
+    col_spec = pl.BlockSpec((span,), lambda i, s: (s,))
+    drp = pl.pallas_call(
+        functools.partial(_dreps_kernel, k_total=K, block_k=BLOCK_K_BWD),
+        grid=(Bp // BLOCK_B, splits),
+        in_specs=[pl.BlockSpec((BLOCK_B, dp), lambda i, s: (i, 0)),
+                  pl.BlockSpec((span, dp), lambda i, s: (s, 0)),
+                  col_spec, col_spec, row_spec, row_spec, row_spec],
+        out_specs=pl.BlockSpec((None, BLOCK_B, dp), lambda i, s: (s, i, 0)),
+        out_shape=jax.ShapeDtypeStruct((splits, Bp, dp), jnp.float32),
+        backend="triton",
+        compiler_params=_params(),
         interpret=interpret,
-    )(reps_p, cand_k, corr_p, ids_p, pos_p[:, None], lse_m, g_p)
-    dreps = drp if accum else jnp.sum(drp, axis=0)               # [Bp, dp]
-    return (dreps[:B, :d_orig], dC[:K, :d_orig].astype(cand_k.dtype),
-            dcorr[0, :K], None, None)
+        name="sampled_lse_dreps",
+    )(*operands)
+
+    full_rows = pl.BlockSpec((Bp,), lambda j: (0,))
+    cols = pl.BlockSpec((BLOCK_K_BWD,), lambda j: (j,))
+    dc, dcorr = pl.pallas_call(
+        functools.partial(_dcand_kernel, k_total=K, block_b=BLOCK_B_BWD),
+        grid=(Kp // BLOCK_K_BWD,),
+        in_specs=[pl.BlockSpec((Bp, dp), lambda j: (0, 0)),
+                  pl.BlockSpec((BLOCK_K_BWD, dp), lambda j: (j, 0)),
+                  cols, cols, full_rows, full_rows, full_rows],
+        out_specs=[pl.BlockSpec((BLOCK_K_BWD, dp), lambda j: (j, 0)),
+                   cols],
+        out_shape=[jax.ShapeDtypeStruct((Kp, dp), jnp.float32),
+                   jax.ShapeDtypeStruct((Kp,), jnp.float32)],
+        backend="triton",
+        compiler_params=_params(),
+        interpret=interpret,
+        name="sampled_lse_dcand",
+    )(*operands)
+    dreps = jnp.sum(drp, axis=0)[:B, :d]
+    return dreps, dc[:K, :d].astype(cand_like.dtype), dcorr[:K], None, None
 
 
 sampled_lse.defvjp(_slse_fwd, _slse_bwd)
+
+
+def sampled_lse_reference(reps: jax.Array, cand: jax.Array,
+                          corr: jax.Array, cand_ids: jax.Array,
+                          pos_ids: jax.Array, dtype: str = "float32",
+                          precision=None) -> jax.Array:
+    """The same masked log-sum-exp composed in XLA: the [B, k] logits
+    materialize. Operands cast to ``dtype`` as in the kernel; pass
+    ``precision=HIGHEST`` for an fp32 oracle on a GPU."""
+    ct = _ct(dtype)
+    z = jnp.dot(reps.astype(ct), cand.astype(ct).T,
+                preferred_element_type=jnp.float32, precision=precision)
+    z = z - corr.astype(jnp.float32)[None, :]
+    z = jnp.where(cand_ids[None, :] == pos_ids[:, None], NEG, z)
+    return jax.scipy.special.logsumexp(z, axis=-1)

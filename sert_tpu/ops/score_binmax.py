@@ -1,14 +1,22 @@
-"""Fused scoring + bin-max Pallas kernel.
+"""Fused scoring + bin-max sweep: a Pallas kernel on the Triton route.
 
-Computes ``S = R @ M^T (+ alpha_q * bias_e)`` tile-by-tile in VMEM and emits
-only per-bin maxima over groups of LANES=128 consecutive entities:
-``out[q, b] = max_{l<128} S[q, b*128 + l]``. The [Q, E] score matrix never
-touches HBM — output is 128x smaller than the scores, so the kernel is
-matmul-bound (MXU) instead of sort- or bandwidth-bound.
+Computes ``S = R @ M^T (+ alpha_q * bias_e)`` tile by tile and emits only
+per-bin maxima over groups of ``bin_width`` consecutive entities:
+``out[q, b] = max_{l < bw} S[q, b * bw + l]``. The [Q, E] score matrix never
+reaches device memory: at Q=64, E=1M it would be 256 MB of fp32 written
+and read back, against the 256 MB bf16 entity matrix the sweep has to read
+once anyway.
 
-Tiling: grid (Q/TQ, E/TE); each step one MXU matmul [TQ, d] x [d, TE] with
-fp32 accumulation from bf16 inputs, one VPU max-reduce, one tiny HBM write.
-Non-TPU backends run the same kernel under the Pallas interpreter (tests).
+Tiling: one program per (query block, entity span). The program keeps its
+``[BQ, d]`` query tile and walks its span in ``BE``-row entity tiles inside
+a loop (so Triton can pipeline the tile loads): one bf16 ``pl.dot`` with
+fp32 accumulation, the bias term, a mask for padded entity rows, and a max
+over each bin. Bins never straddle tiles, so no block carries state to
+another and every block is independent.
+
+:func:`binmax_reference` is the same arithmetic in plain ``jnp`` that XLA
+compiles: the CPU path, the test oracle, and the baseline the kernel is
+timed against.
 """
 
 from __future__ import annotations
@@ -19,44 +27,14 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANES = 128
+from sert_tpu import engines
 
-
-# Output is stored TRANSPOSED, bins-major ([n_bins, Q]): a [TQ, TE/128] bin
-# block would violate Mosaic's (8, 128)-divisible block rule, but its
-# transpose [TE/128, TQ] tiles cleanly.
-
-def _binmax_tile(s, tq, te, bw):
-    """[TQ, TE] scores -> [TE/bw, TQ] per-bin maxima (transposed).
-
-    For bw < LANES, Mosaic cannot shape-cast the lane axis below 128, so
-    sub-bin maxima are computed as masked maxes over the 128-lane groups and
-    interleaved on the SUBLANE axis (leading-dim reshape is supported);
-    bin order stays entity order: bin = group*(LANES//bw) + part."""
-    nb = te // LANES
-    s3 = s.reshape(tq, nb, LANES)
-    if bw == LANES:
-        return jnp.max(s3, axis=-1).T
-    lane = jax.lax.broadcasted_iota(jnp.int32, s3.shape, 2)
-    parts = []
-    for k in range(LANES // bw):
-        m = jnp.max(jnp.where((lane >= k * bw) & (lane < (k + 1) * bw),
-                              s3, float("-inf")), axis=-1)      # [tq, nb]
-        parts.append(m.T)                                       # [nb, tq]
-    return jnp.stack(parts, axis=1).reshape((LANES // bw) * nb, tq)
-
-
-def _kernel_bias(r_ref, m_ref, b_ref, a_ref, o_ref, *, tq, te, bw):
-    s = jnp.dot(r_ref[:], m_ref[:].T, preferred_element_type=jnp.float32)
-    s = s + a_ref[:] * b_ref[:]          # [TQ,1] * [1,TE] broadcast
-    o_ref[:] = _binmax_tile(s, tq, te, bw)
-
-
-def _kernel_nobias(r_ref, m_ref, o_ref, *, tq, te, bw):
-    s = jnp.dot(r_ref[:], m_ref[:].T, preferred_element_type=jnp.float32)
-    o_ref[:] = _binmax_tile(s, tq, te, bw)
+LANES = 128          # default bin width: entities per prefilter bin
+SPAN = 2048          # entity rows per program (the padding multiple)
+BLOCK_E = 128        # entity rows per inner dot tile
+MAX_BLOCK_Q = 64     # query rows per program
 
 
 def _pad_to(x: jax.Array, axis: int, mult: int, value=0):
@@ -69,109 +47,141 @@ def _pad_to(x: jax.Array, axis: int, mult: int, value=0):
     return jnp.pad(x, widths, constant_values=value)
 
 
-def prepare_binmax_matrix(M: jax.Array, te: int = 2048,
+def padded_dim(d: int) -> int:
+    """Feature width the kernel sees: a power of two of at least 16 (what
+    Triton's dot takes); zero columns change no score."""
+    return max(16, pl.next_power_of_2(d))
+
+
+def prepare_binmax_matrix(M: jax.Array, te: int = SPAN,
                           dtype=jnp.bfloat16) -> jax.Array:
-    """One-time cast+pad of the entity matrix for the binmax sweep. Keep the
-    result resident across calls — re-preparing 512MB per sweep costs more
-    than the sweep itself (benchmarks/NOTES.md).
+    """One-time cast + pad of the entity matrix for the sweep: rows to a
+    multiple of ``te``, columns to :func:`padded_dim`. Keep the result
+    resident across calls; re-preparing the matrix per sweep costs more
+    than the sweep itself.
 
-    ``dtype=jnp.float32`` gives a full-precision prefilter (slower MXU
-    passes, 2x memory) for score distributions whose top-k margins sit
-    below bf16 resolution — see ops/exact_topk.py precision caveat."""
+    ``dtype=jnp.float32`` gives a full-precision prefilter (2x the bytes)
+    for score distributions whose top-k margins sit below bf16 resolution;
+    see the precision caveat in ops/exact_topk.py."""
     Mp = _pad_to(M.astype(dtype), 0, te)
-    return _pad_to(Mp, 1, LANES)
+    return _pad_to(Mp, 1, padded_dim(M.shape[1]))
 
 
-@functools.partial(jax.jit, static_argnames=("num_entities", "tq", "te",
-                                             "interpret", "bin_width"))
+def _sweep_kernel(*refs, num_entities, span, block_e, bw, has_bias):
+    if has_bias:
+        r_ref, m_ref, b_ref, a_ref, o_ref = refs
+    else:
+        r_ref, m_ref, o_ref = refs
+    bq = r_ref.shape[0]
+    nb = block_e // bw
+    r = r_ref[...]
+    if has_bias:
+        alpha = a_ref[...]                                   # [bq]
+    base = pl.program_id(1) * span
+
+    def body(t, carry):
+        rows = pl.ds(t * block_e, block_e)
+        s = pl.dot(r, m_ref[rows, :], trans_b=True)          # [bq, block_e]
+        if has_bias:
+            s = s + alpha[:, None] * b_ref[rows][None, :]
+        col = base + t * block_e + jnp.arange(block_e)
+        s = jnp.where(col[None, :] < num_entities, s, -jnp.inf)
+        o_ref[:, pl.ds(t * nb, nb)] = jnp.max(s.reshape(bq, nb, bw), axis=-1)
+        return carry
+
+    jax.lax.fori_loop(0, span // block_e, body, 0)
+
+
+def _block_q(q: int) -> int:
+    return min(MAX_BLOCK_Q, max(16, pl.next_power_of_2(q)))
+
+
+@functools.partial(jax.jit, static_argnames=("num_entities", "te",
+                                             "bin_width", "interpret"))
 def score_binmax_prepared(R: jax.Array, Mp: jax.Array, num_entities: int,
                           bias: Optional[jax.Array] = None,
                           alpha: Optional[jax.Array] = None,
-                          tq: int = 256, te: int = 2048,
-                          interpret: Optional[bool] = None,
-                          bin_width: int = LANES) -> jax.Array:
-    """[Q, ceil(E/bin_width)] bin maxima of R @ M^T (+ alpha*bias).
+                          te: int = SPAN, bin_width: int = LANES,
+                          interpret: bool = False) -> jax.Array:
+    """[Q, ceil(E / bin_width)] bin maxima of R @ M^T (+ alpha * bias).
 
-    ``Mp`` must come from :func:`prepare_binmax_matrix`. bias [E] and alpha
-    [Q] are optional (log-linear's per-entity bias scaled by the per-query
-    term count). Entity padding produces -inf bins the caller can trust to
-    lose any merge; the tail PARTIAL bin may be inflated by padding — the
-    exact_topk wrapper budgets extra bins for it.
+    ``Mp`` must come from :func:`prepare_binmax_matrix` with the same
+    ``te``. bias [E] and alpha [Q] are optional (log-linear's per-entity
+    bias scaled by the per-query term count). Padded entity rows are
+    masked to -inf inside the kernel, so the tail bin is exact.
 
-    ``bin_width`` (64 or 128): smaller bins double the prefilter output but
-    HALVE the bytes the rescore gather must read — the top-k still spans at
-    most k+pad bins regardless of width (each winner needs its bin fetched
-    once). 64 is the measured throughput sweet spot at E=1M (NOTES.md).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    Q, d = R.shape
-    E = num_entities
-
-    Rp = _pad_to(R.astype(Mp.dtype), 0, tq)
-    Rp = _pad_to(Rp, 1, LANES)
-    Qp, Ep, dp = Rp.shape[0], Mp.shape[0], Rp.shape[1]
-    assert Mp.shape[1] == dp, "R/M dim mismatch after padding"
-    assert te % bin_width == 0 and LANES % bin_width == 0
+    The kernel compiles for the GPU only; elsewhere pass ``interpret=True``
+    (tests) or use :func:`binmax_reference`."""
+    engines.require_kernel_backend(interpret, "score_binmax")
+    Q = R.shape[0]
+    Ep, dp = Mp.shape
     if Ep % te:
-        # Grid flooring below would silently skip the tail rows (their bins
-        # would come back as uninitialized memory) — the te used here MUST
-        # match the one prepare_binmax_matrix padded for.
         raise ValueError(
-            f"Mp has {Ep} rows, not a multiple of te={te}: the sweep tile "
-            f"size must match the prepare_binmax_matrix te")
-    n_bins_padded = Ep // bin_width
+            f"Mp has {Ep} rows, not a multiple of te={te}: the sweep span "
+            "must match the prepare_binmax_matrix te")
+    if te % BLOCK_E or BLOCK_E % bin_width:
+        raise ValueError(f"te={te} / bin_width={bin_width} must tile "
+                         f"the {BLOCK_E}-row dot block")
+    bq = _block_q(Q)
+    Rp = _pad_to(_pad_to(R.astype(Mp.dtype), 0, bq), 1, dp)
+    Qp = Rp.shape[0]
+    grid = (Qp // bq, Ep // te)
+    has_bias = bias is not None
+    operands = [Rp, Mp]
+    in_specs = [pl.BlockSpec((bq, dp), lambda i, j: (i, 0)),
+                pl.BlockSpec((te, dp), lambda i, j: (j, 0))]
+    if has_bias:
+        if alpha is None:
+            alpha = jnp.ones((Q,), jnp.float32)
+        operands += [_pad_to(bias.astype(jnp.float32), 0, te)[:Ep],
+                     _pad_to(alpha.astype(jnp.float32), 0, bq)]
+        in_specs += [pl.BlockSpec((te,), lambda i, j: (j,)),
+                     pl.BlockSpec((bq,), lambda i, j: (i,))]
+    bins = pl.pallas_call(
+        functools.partial(_sweep_kernel, num_entities=num_entities,
+                          span=te, block_e=BLOCK_E, bw=bin_width,
+                          has_bias=has_bias),
+        grid=grid,
+        in_specs=in_specs,
+        out_specs=pl.BlockSpec((bq, te // bin_width), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((Qp, Ep // bin_width), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=3),
+        interpret=interpret,
+        name="score_binmax",
+    )(*operands)
+    return bins[:Q, :-(-num_entities // bin_width)]
 
-    grid = (Qp // tq, Ep // te)
-    out_shape = jax.ShapeDtypeStruct((n_bins_padded, Qp), jnp.float32)
-    out_spec = pl.BlockSpec((te // bin_width, tq),
-                            lambda i, j: (j, i),
-                            memory_space=pltpu.VMEM)
-    r_spec = pl.BlockSpec((tq, dp), lambda i, j: (i, 0),
-                          memory_space=pltpu.VMEM)
-    m_spec = pl.BlockSpec((te, dp), lambda i, j: (j, 0),
-                          memory_space=pltpu.VMEM)
 
+@functools.partial(jax.jit, static_argnames=("num_entities", "bin_width"))
+def binmax_reference(R: jax.Array, Mp: jax.Array, num_entities: int,
+                     bias: Optional[jax.Array] = None,
+                     alpha: Optional[jax.Array] = None,
+                     bin_width: int = LANES) -> jax.Array:
+    """The sweep in plain jnp, left to XLA: the [Q, E] scores materialize
+    once, then reduce per bin. Same operand dtype and fp32 accumulation as
+    the kernel, so the two agree to accumulation order."""
+    Q = R.shape[0]
+    Ep, dp = Mp.shape
+    Rp = _pad_to(R.astype(Mp.dtype), 1, dp)
+    s = jnp.dot(Rp, Mp.T, preferred_element_type=jnp.float32)    # [Q, Ep]
     if bias is not None:
         if alpha is None:
             alpha = jnp.ones((Q,), jnp.float32)
-        bp = _pad_to(bias.astype(jnp.float32)[None, :], 1, te)
-        ap = _pad_to(alpha.astype(jnp.float32)[:, None], 0, tq)
-        bins = pl.pallas_call(
-            functools.partial(_kernel_bias, tq=tq, te=te, bw=bin_width),
-            grid=grid,
-            in_specs=[r_spec, m_spec,
-                      pl.BlockSpec((1, te), lambda i, j: (0, j),
-                                   memory_space=pltpu.VMEM),
-                      pl.BlockSpec((tq, 1), lambda i, j: (i, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=out_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(Rp, Mp, bp, ap)
-    else:
-        bins = pl.pallas_call(
-            functools.partial(_kernel_nobias, tq=tq, te=te, bw=bin_width),
-            grid=grid,
-            in_specs=[r_spec, m_spec],
-            out_specs=out_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(Rp, Mp)
-
-    bins = bins.T[:Q]
-    # Bins made ENTIRELY of padded entities are exactly known: mask to -inf.
-    n_valid_bins = -(-E // bin_width)
-    return bins[:, :n_valid_bins]
+        b = _pad_to(bias.astype(jnp.float32), 0, Ep)[:Ep]
+        s = s + alpha.astype(jnp.float32)[:, None] * b[None, :]
+    s = jnp.where(jnp.arange(Ep)[None, :] < num_entities, s, -jnp.inf)
+    n_bins = -(-num_entities // bin_width)
+    s = s[:, :n_bins * bin_width]
+    return jnp.max(s.reshape(Q, n_bins, bin_width), axis=-1)
 
 
 def score_binmax(R: jax.Array, M: jax.Array,
                  bias: Optional[jax.Array] = None,
                  alpha: Optional[jax.Array] = None,
-                 tq: int = 256, te: int = 2048,
-                 interpret: Optional[bool] = None) -> jax.Array:
-    """Convenience wrapper: prepare M and sweep in one call (tests / one-shot
-    use). Hot paths should prepare once via prepare_binmax_matrix."""
+                 te: int = SPAN, interpret: bool = False) -> jax.Array:
+    """Convenience wrapper: prepare M and sweep in one call (tests and
+    one-shot use). Hot paths prepare once via prepare_binmax_matrix."""
     Mp = prepare_binmax_matrix(M, te=te)
-    return score_binmax_prepared(R, Mp, M.shape[0], bias, alpha,
-                                 tq=tq, te=te, interpret=interpret)
+    return score_binmax_prepared(R, Mp, M.shape[0], bias, alpha, te=te,
+                                 interpret=interpret)

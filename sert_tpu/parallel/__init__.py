@@ -1,7 +1,7 @@
 """Distribution layer: mesh, shardings, sharded training, distributed top-k.
 
 The reference was single-process/single-device (SURVEY.md section 3.3); every
-parallelism here is new capability designed for TPU:
+parallelism here is new capability:
 
   * mesh axes ``("data", "model")``: batches shard over ``data`` (DP),
     the entity axis — SERT's only real scale axis — shards over ``model``
@@ -11,7 +11,7 @@ parallelism here is new capability designed for TPU:
     psum/all-gather collectives (log-sum-exp over the sharded entity axis,
     DP gradient reduction).
   * scoring: explicit shard_map kernels — per-shard streaming top-k merged
-    either by a small all_gather or by rotating query blocks around the ICI
+    either by a small all_gather or by rotating winners around a device
     ring with ppermute (SURVEY.md section 6, long-context row: the
     ring/blockwise pattern applied to the entity axis).
 

@@ -1,17 +1,10 @@
-"""Drop-in mesh-sharded fused-softmax losses for the full-softmax families.
+"""Mesh deployment of the flash sampled-softmax LSE loss.
 
-Builds a loss with the api.loss_fn signature whose entity-axis softmax runs
-through ops.xent.make_sharded_xent_loss (per-shard Pallas kernels + psum
-stitching) instead of the XLA composition GSPMD would otherwise partition.
-The pooling front (word_emb gather + masked mean [+ tanh projection for
-lse_full]) stays outside shard_map: word_emb is replicated and the batch is
-data-sharded, so GSPMD partitions it with zero collectives, and its gradient
-flows through the shard_map boundary like any other jax op.
-
-SURVEY.md section 3.2 (build consequence): the fused training kernel is
-mandated WITH data-parallel batches over the mesh — this module is that
-deployment; parallel/train.py routes to it whenever the fused path is
-selected on a multi-device mesh.
+Builds a loss with the api.loss_fn signature whose masked log-sum-exp over
+the shared candidates runs through the Triton kernels (ops/sampled_lse.py)
+per shard, stitched with one pmax + one psum, instead of the XLA
+composition GSPMD would otherwise partition. parallel/train.py routes to it
+whenever the fused sampled loss is selected on a multi-device mesh.
 """
 
 from __future__ import annotations
@@ -22,47 +15,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from sert_tpu.models.common import compute_dtype, masked_mean_embed
-from sert_tpu.ops.xent import make_sharded_xent_loss
 from sert_tpu.utils.config import ModelConfig
-
-
-def make_sharded_fused_loss(cfg: ModelConfig, mesh: Mesh):
-    """Returns ``loss_fn(params, batch, cfg, rng=None, noise=None)`` for
-    ``cfg.model`` in {"loglinear", "lse_full"} with the entity softmax fused
-    per shard. Raises for other families (LSE's sampled objective gathers k
-    rows — there is no entity-wide softmax to fuse)."""
-    if cfg.model not in ("loglinear", "lse_full"):
-        raise ValueError(
-            f"sharded fused softmax applies to full-softmax families only, "
-            f"got {cfg.model!r}")
-    tp = mesh.shape["model"]
-    if cfg.num_entities % tp:
-        raise ValueError(
-            f"num_entities={cfg.num_entities} must divide the model axis "
-            f"({tp}) for the sharded fused kernel; pad the entity count")
-    layout = "de" if cfg.model == "loglinear" else "ed"
-    xent = make_sharded_xent_loss(mesh, layout=layout,
-                                  dtype=cfg.compute_dtype)
-
-    def loss_fn(params, batch, cfg_: ModelConfig, rng=None,
-                noise: Optional[jnp.ndarray] = None) -> jnp.ndarray:
-        del rng, noise  # full softmax needs no sampling
-        ct = compute_dtype(cfg_)
-        pooled = masked_mean_embed(params["word_emb"].astype(ct),
-                                   batch["windows"], batch["lengths"])
-        if cfg_.model == "loglinear":
-            W, b = params["proj_w"], params["proj_b"]
-        else:  # lse_full: tanh projection into entity space, zero bias
-            h = jnp.dot(pooled, params["proj_w"].astype(ct),
-                        preferred_element_type=jnp.float32)
-            pooled = jnp.tanh(h + params["proj_b"].astype(jnp.float32))
-            W = params["entity_emb"]
-            b = jnp.zeros((cfg_.num_entities,), jnp.float32)
-        total = xent(pooled.astype(jnp.float32), W, b, batch["entities"])
-        return total / batch["windows"].shape[0]
-
-    return loss_fn
 
 
 def make_sharded_sampled_loss(cfg: ModelConfig, mesh: Mesh,
@@ -76,10 +29,9 @@ def make_sharded_sampled_loss(cfg: ModelConfig, mesh: Mesh,
     device runs the single-device flash kernel (ops/sampled_lse) on its
     [B/dp, k/tp] block — the [B, k] corrected-logits array never exists
     anywhere — and the global masked lse is stitched with one pmax + one
-    psum over the model axis, exactly the xent sharding recipe
-    (ops/xent.make_sharded_xent_loss).
+    psum over the model axis.
 
-    Same transpose conventions as the xent variant: the body returns a
+    Transpose conventions: the body returns a
     PER-SHARD partial loss ([1], fully sharded) scaled by 1/n_model, so the
     shard_map transpose's replicated-axis psums (over ``model`` for
     reps/pos/s_pos, over ``data`` for cand/corr) are exactly the reductions
@@ -124,9 +76,9 @@ def make_sharded_sampled_loss(cfg: ModelConfig, mesh: Mesh,
         loc = jnp.sum(jax.nn.softplus(lse_g - s_pos_l)) / n_model
         return loc[None]
 
-    # check_vma=False: pallas_call outputs carry no varying-axes metadata
-    # (same note as ops/xent.make_sharded_xent_loss); correctness is pinned
-    # by the mesh-vs-single-device value/grad parity tests.
+    # check_vma=False: pallas_call outputs carry no varying-axes metadata;
+    # correctness is pinned by the mesh-vs-single-device value/grad parity
+    # tests.
     mapped = jax.shard_map(
         _body, mesh=mesh,
         in_specs=(P(data_axis, None), P(model_axis, None), P(model_axis),

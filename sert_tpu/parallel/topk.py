@@ -6,7 +6,7 @@ and runs the SAME chunked sweep as the single-chip engine
 
   * ``"allgather"`` — every device all-gathers the [Q, k] per-shard winners
     (k is small) and locally re-top-ks. One collective, minimal latency.
-  * ``"ring"`` — the running top-k carry rotates around the ICI ring via
+  * ``"ring"`` — the running top-k carry rotates around the device ring via
     ``ppermute``, merging against each resident shard's winners; after S-1
     hops every device holds the global top-k. Same systolic pattern as ring
     attention, applied to the entity axis (SURVEY.md section 6) — preferable
@@ -21,14 +21,15 @@ single-device engine).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from sert_tpu import engines
 from sert_tpu.models import api
-from sert_tpu.scoring.scorer import (_entity_matrix,
+from sert_tpu.scoring.scorer import (HIGHEST, _entity_matrix,
                                      _query_reps_and_terms,
                                      apply_ll_normalizer, chunked_topk_core,
                                      lse_chunk_update)
@@ -57,7 +58,8 @@ def _local_lse(term_emb, mask, M_shard, bias_shard, chunk):
         lo = ci * chunk
         Mc = jax.lax.dynamic_slice_in_dim(M_p, lo, chunk, axis=0)
         bc = jax.lax.dynamic_slice_in_dim(b_p, lo, chunk)
-        z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc) + bc
+        z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc,
+                       precision=HIGHEST) + bc
         z = jnp.where(((lo + jnp.arange(chunk)) < rows)[None, None, :], z,
                       -jnp.inf)
         return lse_chunk_update(run_max, run_sum, z), None
@@ -75,14 +77,16 @@ def _local_binmax_topk(R, mask, M_shard, bias_shard, k, is_ll,
 
     Same algorithm as ops/exact_topk but with the local scores materialized
     once ([Q, rows_local] transient) so candidates are GATHERED from them
-    instead of rescored — avoiding the giant top_k is the win on pods, where
-    rows_local = E / n_shards keeps the transient modest. The fixed-memory
+    instead of rescored — avoiding the giant top_k is the win on a mesh,
+    where rows_local = E / n_shards keeps the transient modest. The XLA
+    baseline the fused sweep (ops/score_binmax.py) is timed against. The
+    fixed-memory
     alternative remains local_engine="scan"."""
     rows = M_shard.shape[0]
     Q = R.shape[0]
     pad = (-rows) % lanes
     M_p = jnp.pad(M_shard, ((0, pad), (0, 0)))
-    z = jnp.dot(R.astype(jnp.float32), M_p.T,
+    z = jnp.dot(R.astype(jnp.float32), M_p.T, precision=HIGHEST,
                 preferred_element_type=jnp.float32)          # [Q, rows_p]
     if is_ll:
         b_p = jnp.pad(bias_shard, (0, pad))
@@ -117,14 +121,12 @@ def _shard_body(R, term_emb, mask, M_shard, bias_shard, *prep_arrays,
     rows = M_shard.shape[0]
     offset = my * rows
 
-    if local_engine == "pallas":
-        # The single-chip perf centerpiece, per shard: fused binmax sweep +
-        # scalar-prefetch gather/rescore (ops/exact_topk). Scores never
-        # materialize in HBM — on a pod this keeps the sharded engine the
-        # FAST variant instead of the XLA re-derivation below. The staged
-        # matrices (prepare_distributed) arrive as extra sharded operands so
-        # repeated sweeps do not re-cast/pad the matrix (benchmarks/NOTES.md:
-        # re-preparing 512MB costs ~2 ms/sweep at E=1M).
+    if local_engine == "exact":
+        # The single-card exact engine per shard: fused bin-max sweep +
+        # exact rescore of the top bins (ops/exact_topk); scores never
+        # materialize in device memory. The staged matrices
+        # (prepare_distributed) arrive as extra sharded operands so
+        # repeated sweeps do not re-cast/pad the matrix.
         from sert_tpu.ops.exact_topk import PreparedEntities, exact_topk_prepared
         Mp_l, Mb_l = prep_arrays
         prep = PreparedEntities(Mp_l, Mb_l, rows, M_shard.shape[1],
@@ -193,25 +195,27 @@ def _shard_body(R, term_emb, mask, M_shard, bias_shard, *prep_arrays,
 
 
 def resolve_local_engine(local_engine: str) -> str:
-    """'auto' -> the per-shard engine for the current backend. The ONE
-    resolver shared by distributed_topk and scoring.run.stage_distributed —
-    if they resolved independently, the serve path could stage prep for a
-    different engine than direct calls sweep with."""
+    """'auto' -> engines.local_engine(). The ONE resolver shared by
+    distributed_topk and scoring.run.stage_distributed — if they resolved
+    independently, the serve path could stage prep for a different engine
+    than direct calls sweep with."""
     if local_engine == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "binmax"
+        return engines.local_engine()
     return local_engine
 
 
 def prepare_distributed(params, cfg: ModelConfig, mesh: Mesh,
-                        similarity: str = "dot", te: int = 4096,
+                        similarity: str = "dot", te: Optional[int] = None,
                         rescore_dtype: str = "float32",
                         prefilter_dtype: str = "bfloat16"):
-    """Stage the entity matrix for repeated ``local_engine="pallas"`` sweeps:
+    """Stage the entity matrix for repeated ``local_engine="exact"`` sweeps:
     per-shard prepare_entities under shard_map, with the padded prefilter and
     bin-major rescore views returned as model-axis-sharded globals. Pass the
     result as ``distributed_topk(..., prep=...)`` — one-time cost, exactly
-    like the single-chip prepare_entities/pallas_topk pairing."""
+    like the single-card prepare_entities/exact_engine_topk pairing."""
     from sert_tpu.ops.exact_topk import PreparedEntities, prepare_entities
+    from sert_tpu.ops.score_binmax import SPAN
+    te = te or SPAN
 
     M = _entity_matrix(params, cfg, similarity)
     E, d = M.shape
@@ -244,9 +248,9 @@ def distributed_topk(params, cfg: ModelConfig, term_ids: jax.Array,
     data-row. Entity count must divide evenly by the model-axis size (pad
     the entity matrix upstream if not — recipes do).
 
-    ``local_engine``: "auto" (pallas on TPU, binmax elsewhere), "pallas"
-    (the fused binmax + gather/rescore kernels per shard — the single-chip
-    fast path, SURVEY.md section 4.3), "binmax" (same exact prefilter
+    ``local_engine``: "auto" (engines.local_engine), "exact" (the fused
+    bin-max sweep + exact rescore per shard — the single-card engine,
+    SURVEY.md section 4.3), "binmax" (same exact prefilter
     algorithm in partitionable XLA, O(Q * E/n_shards) transient) or "scan"
     (fixed-memory chunked sweep with per-chunk top-k merges).
     """
@@ -269,7 +273,7 @@ def distributed_topk(params, cfg: ModelConfig, term_ids: jax.Array,
                 P("model", None), P("model")]
     args = [R, term_emb, mask, M, bias]
     prep_te = None
-    if local_engine == "pallas":
+    if local_engine == "exact":
         if prep is None:
             prep = prepare_distributed(params, cfg, mesh,
                                        similarity=similarity)

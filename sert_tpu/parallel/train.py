@@ -4,8 +4,8 @@ GSPMD approach: the pure step function from sert_tpu.train.step is jitted
 with NamedSharding in/out specs; XLA partitions the full-softmax matmul over
 the ``model`` axis (inserting the log-sum-exp psum) and the batch over
 ``data`` (inserting the gradient all-reduce). No manual collectives in the
-training path — that is the TPU-native replacement for the NCCL/MPI plumbing
-a torch port would have carried (SURVEY.md section 6, comm backend row).
+training path: XLA hands the collectives to NCCL (SURVEY.md section 6, comm
+backend row).
 """
 
 from __future__ import annotations
@@ -13,30 +13,20 @@ from __future__ import annotations
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from sert_tpu import engines
 from sert_tpu.parallel.sharding import state_shardings
 from sert_tpu.train.step import TrainState, init_state, make_train_step
 from sert_tpu.utils.config import ModelConfig, TrainConfig
 
 
-def _want_fused(model_cfg: ModelConfig) -> bool:
-    if model_cfg.model not in ("loglinear", "lse_full"):
-        return False  # LSE's sampled objective has no entity-wide softmax
-    # ONE policy for on/off/auto, shared with the single-device dispatch
-    # (models.loglinear._use_fused): "auto" requires E >= 4096, a TPU
-    # backend, AND a VMEM-plan-feasible kernel tile at this model width —
-    # very wide models fall back to the XLA composition on the mesh exactly
-    # like they do single-device, instead of raising at trace time.
-    from sert_tpu.models.loglinear import _use_fused
-    return _use_fused(model_cfg)
-
-
 def _want_fused_sampled(model_cfg: ModelConfig, mesh: Mesh,
                         model_axis: str = "model") -> bool:
     """Mesh gate for the fused sampled-softmax LSE loss. Same policy shape
-    as the single-device dispatch (models.lse._use_fused_sampled): "on"
+    as the single-device dispatch (models.lse.loss_sampled_softmax): "on"
     forces it (the maker raises loudly on a mesh-indivisible candidate
     count), "auto" additionally requires divisibility so infeasible
     configurations fall back to the XLA composition instead of raising.
+    The choice itself is engines.fused_sampled_lse's.
 
     ``model_axis`` must be the SAME name the caller passes to
     make_sharded_sampled_loss — the gate and the maker inspect the same
@@ -50,8 +40,8 @@ def _want_fused_sampled(model_cfg: ModelConfig, mesh: Mesh,
     tp = dict(mesh.shape).get(model_axis)
     if tp is None or model_cfg.num_negatives % tp:
         return False
-    from sert_tpu.models.lse import _use_fused_sampled
-    return _use_fused_sampled(model_cfg, model_cfg.num_negatives)
+    return engines.fused_sampled_lse(model_cfg.fused_softmax,
+                                     model_cfg.num_negatives)
 
 
 def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -69,33 +59,15 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     process passes the full global batch and device_put transfers the
     addressable shards.
     """
-    from sert_tpu.train import fused as fused_mod
-    if mesh.size > 1 and fused_mod.fused_tp_enabled(model_cfg, train_cfg,
-                                                    mesh):
-        # Pure-TP mesh (data=1) with fused_update='on': the optimizer
-        # applies inside each shard's backward kernel (dW never reaches
-        # HBM; ops/xent.make_sharded_xent_apply). Checked before the loss
-        # routing below — this step embeds its own shard_map.
-        return _finish(fused_mod.make_fused_train_step(
-            model_cfg, train_cfg, jit=False, mesh=mesh),
-            model_cfg, train_cfg, mesh, per_process_feed)
     loss_override = None
-    if mesh.size > 1 and _want_fused(model_cfg):
-        # pallas_call has no GSPMD partitioning rule, so the single-device
-        # fused path would force operand gathers on a multi-device mesh.
-        # Route the loss through the shard_map formulation instead: the same
-        # kernels run per shard and exactness is stitched with psum/pmax
-        # (ops/xent.py, sharded variant). The inner single-device dispatch
-        # is pinned off so it cannot double-fuse.
-        from sert_tpu.parallel.fused_loss import make_sharded_fused_loss
-        loss_override = make_sharded_fused_loss(model_cfg, mesh)
-        model_cfg = model_cfg.replace(fused_softmax="off")
-    elif mesh.size > 1 and _want_fused_sampled(model_cfg, mesh,
-                                               model_axis="model"):
+    if mesh.size > 1 and _want_fused_sampled(model_cfg, mesh,
+                                             model_axis="model"):
         # Flagship objective on a mesh: batch over ``data``, shared
         # candidates over ``model``, the flash sampled-lse kernel per shard
-        # (parallel/fused_loss.make_sharded_sampled_loss). Pin the inner
-        # dispatch off so the single-device kernel cannot double-fuse.
+        # (parallel/fused_loss.make_sharded_sampled_loss): pallas_call has
+        # no GSPMD partitioning rule, so the single-device path would force
+        # operand gathers. Pin the inner dispatch off so the single-device
+        # kernel cannot double-fuse.
         # NOTE: the axis name here and in the gate above must match.
         from sert_tpu.parallel.fused_loss import make_sharded_sampled_loss
         loss_override = make_sharded_sampled_loss(model_cfg, mesh,

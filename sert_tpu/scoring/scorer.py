@@ -35,6 +35,10 @@ from sert_tpu.utils.config import ModelConfig
 # platform before callers can choose one. jnp ops weak-type it identically.
 NEG_INF = -1e30
 
+# The "exact" engines multiply in fp32 at full precision: on a GPU a
+# DEFAULT-precision fp32 product may run in TF32 (~1e-3 relative error).
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _query_reps_and_terms(params, cfg: ModelConfig, term_ids, num_terms,
                           similarity: str):
@@ -66,13 +70,14 @@ def dense_scores(params, cfg: ModelConfig, term_ids: jax.Array,
     R, term_emb, mask = _query_reps_and_terms(params, cfg, term_ids,
                                               num_terms, similarity)
     M = _entity_matrix(params, cfg, similarity)
-    scores = jnp.dot(R.astype(jnp.float32), M.T,
+    scores = jnp.dot(R.astype(jnp.float32), M.T, precision=HIGHEST,
                      preferred_element_type=jnp.float32)          # [Q, E]
     if cfg.model == "loglinear":
         b = params["proj_b"].astype(jnp.float32)
         scores = scores + num_terms.astype(jnp.float32)[:, None] * b[None, :]
         # exact per-term normalizers
-        z = jnp.einsum("qtd,ed->qte", term_emb.astype(jnp.float32), M) + b
+        z = jnp.einsum("qtd,ed->qte", term_emb.astype(jnp.float32), M,
+                       precision=HIGHEST) + b
         lse_t = jax.scipy.special.logsumexp(z, axis=-1)           # [Q, T]
         scores = scores - jnp.sum(lse_t * mask, axis=-1)[:, None]
     return scores
@@ -127,12 +132,13 @@ def chunked_topk_core(R: jax.Array, term_emb: Optional[jax.Array],
         if is_ll:
             bc = jax.lax.dynamic_slice_in_dim(b_p, lo, chunk)
             # term-level logits for the online normalizer
-            z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc) + bc
+            z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc,
+                           precision=HIGHEST) + bc
             z = jnp.where(valid[None, None, :], z, NEG_INF)
             run_max, run_sum = lse_chunk_update(run_max, run_sum, z)
             sc = jnp.sum(z * tm32[:, :, None], axis=1)             # [Q, C]
         else:
-            sc = jnp.dot(R.astype(jnp.float32), Mc.T,
+            sc = jnp.dot(R.astype(jnp.float32), Mc.T, precision=HIGHEST,
                          preferred_element_type=jnp.float32)       # [Q, C]
         sc = jnp.where(valid[None, :], sc, NEG_INF)
         cand_s = jnp.concatenate([top_s, sc], axis=1)              # [Q, K+C]
@@ -161,57 +167,13 @@ def apply_ll_normalizer(top_s: jax.Array, run_max: jax.Array,
     return top_s - const[:, None]
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "chunk", "similarity",
-                                             "engine"))
+@functools.partial(jax.jit, static_argnames=("cfg", "chunk", "similarity"))
 def ll_log_normalizer(params, cfg: ModelConfig, term_ids: jax.Array,
                       num_terms: jax.Array, chunk: int = 1 << 16,
-                      similarity: str = "dot",
-                      engine: str = "auto") -> jax.Array:
-    """[Q] log-linear normalization constants sum_t logsumexp_c(z_tc).
-    Used by the Pallas fast path, whose prefilter ranks by un-normalized
-    sums.
-
-    ``engine="fused"`` (the "auto" choice on TPU) reuses the flash-xent
-    forward kernel (ops.xent._fwd_partials) over the flattened [Q*T, d]
-    term embeddings — per-tile (max, sumexp) partials, no [Q, T, E] logits
-    — measured 2.25x the XLA chunked scan at Q=256/T=4/E=1M with values
-    equal to 1e-7 relative. ``engine="scan"`` keeps the XLA fixed-memory
-    sweep (the non-TPU default; also the fallback for audits)."""
-    if engine == "auto":
-        engine = "fused" if jax.default_backend() == "tpu" else "scan"
-        if engine == "fused":
-            # The kernel's VMEM budget has a width ceiling
-            # (ops.xent.plain_xent_te raises for dp >= ~2432); auto falls
-            # back to the fixed-memory XLA scan for such models instead
-            # of surfacing a train-knob error from the scoring path.
-            from sert_tpu.ops.xent import _resolve_te as _rt
-            try:
-                _rt(None, params["word_emb"].shape[1])
-            except ValueError:
-                engine = "scan"
-    Q, T = term_ids.shape
-    if engine == "fused":
-        from sert_tpu.ops.xent import _fwd_partials, _prep, _resolve_te
-        on_tpu = jax.default_backend() == "tpu"
-        ct = jnp.bfloat16 if on_tpu else jnp.float32
-        # VMEM-budgeted tile width (the fixed 4096 blows the scoped-VMEM
-        # stack at d>=256 fp32; see ops.xent.plain_xent_te).
-        tb = 256
-        te = _resolve_te(None, params["word_emb"].shape[1])
-        emb = params["word_emb"][term_ids]                   # [Q, T, d]
-        flat = emb.reshape(Q * T, emb.shape[-1])
-        labels = jnp.zeros((Q * T,), jnp.int32)              # unused by fwd
-        flat_p, W_k, b_p, _, n_rows, E = _prep(
-            flat, params["proj_w"], params["proj_b"], labels, "de", tb, te,
-            ct)
-        m, s = _fwd_partials(flat_p, W_k, b_p, tb, te, "de", not on_tpu,
-                             E, ct)
-        M_ = jnp.max(m, axis=0)
-        lse = (M_ + jnp.log(jnp.sum(s * jnp.exp(m - M_[None, :]), axis=0)))
-        lse = lse[:Q * T].reshape(Q, T)
-        mask = (jnp.arange(T)[None, :] < num_terms[:, None])
-        return jnp.sum(lse * mask.astype(jnp.float32), axis=-1)
-
+                      similarity: str = "dot") -> jax.Array:
+    """[Q] log-linear normalization constants sum_t logsumexp_c(z_tc): a
+    fixed-memory scan over entity chunks. Used by the exact engine, whose
+    prefilter ranks by un-normalized sums."""
     R, term_emb, mask = _query_reps_and_terms(params, cfg, term_ids,
                                               num_terms, similarity)
     M = _entity_matrix(params, cfg, similarity)
@@ -228,7 +190,8 @@ def ll_log_normalizer(params, cfg: ModelConfig, term_ids: jax.Array,
         lo = ci * chunk
         Mc = jax.lax.dynamic_slice_in_dim(M_p, lo, chunk, axis=0)
         bc = jax.lax.dynamic_slice_in_dim(b_p, lo, chunk)
-        z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc) + bc
+        z = jnp.einsum("qtd,cd->qtc", term_emb.astype(jnp.float32), Mc,
+                       precision=HIGHEST) + bc
         z = jnp.where(((lo + jnp.arange(chunk)) < E)[None, None, :], z, NEG_INF)
         return lse_chunk_update(run_max, run_sum, z), None
 
@@ -238,12 +201,12 @@ def ll_log_normalizer(params, cfg: ModelConfig, term_ids: jax.Array,
     return jnp.sum(lse_t * mask.astype(jnp.float32), axis=-1)
 
 
-def pallas_topk(params, cfg: ModelConfig, term_ids: jax.Array,
-                num_terms: jax.Array, k: int = 100,
-                similarity: str = "dot", prep=None,
-                normalize: bool = True,
-                adaptive_bins: int = 0) -> Tuple[jax.Array, jax.Array]:
-    """Top-k via the fused Pallas engine (ops.exact_topk).
+def exact_engine_topk(params, cfg: ModelConfig, term_ids: jax.Array,
+                      num_terms: jax.Array, k: int = 100,
+                      similarity: str = "dot", prep=None,
+                      normalize: bool = True,
+                      adaptive_bins: int = 0) -> Tuple[jax.Array, jax.Array]:
+    """Top-k via the exact bin-max engine (ops.exact_topk).
 
     For log-linear the prefilter ranks by the rank-equivalent un-normalized
     sum of logits (alpha = |q| scales the entity bias); the exact log-prob
@@ -280,7 +243,7 @@ def streaming_topk(params, cfg: ModelConfig, term_ids: jax.Array,
                    ) -> Tuple[jax.Array, jax.Array]:
     """Top-k entity (scores [Q,k], indices [Q,k]) at O(Q*chunk) memory.
 
-    Scans the entity matrix in ``chunk``-row blocks; each step is one MXU
+    Scans the entity matrix in ``chunk``-row blocks; each step is one
     matmul plus a top-k merge of the running best against the block. The
     log-linear normalizer accumulates online (streaming logsumexp) and is
     applied after the scan — identical scores to :func:`dense_scores`.

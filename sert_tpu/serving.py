@@ -18,11 +18,11 @@ re-staging. This module provides that as
 
 Device dispatches are serialized by a lock: JAX dispatch is thread-safe,
 but serializing keeps per-query latency predictable instead of letting
-concurrent requests queue arbitrarily deep on one chip.
+concurrent requests queue arbitrarily deep on one card.
 
 Concurrent requests MICRO-BATCH instead of queueing one dispatch each:
-the engine's dispatch cost is batch-size-invariant up to query_batch
-(benchmarks/NOTES.md serving table: +256 queries cost ~3 ms total), so
+the engine's dispatch cost is nearly batch-size-invariant up to
+query_batch, so
 ``search``/``search_many`` submit into a shared queue-drain batcher — the
 first free thread becomes the leader, drains every request that arrived
 while the previous dispatch was in flight, and answers them all with ONE
@@ -66,7 +66,7 @@ class EntitySearcher:
     """Load a trained run and answer ranked-entity queries repeatedly.
 
     Loads checkpoint + vocab + entity registry, resolves the scoring
-    engine, stages the entity matrix once (pallas engine), and fires one
+    engine, stages the entity matrix once (exact engine), and fires one
     warm-up dispatch so the first real query does not pay the compile.
     """
 
@@ -101,10 +101,10 @@ class EntitySearcher:
         self._lock = threading.RLock()
         self.prep = None
         engine = resolve_engine(self.score_cfg, self.num_entities)
-        if engine == "pallas":
-            from sert_tpu.ops.exact_topk import (prepare_entities,
-                                                 resolve_rescore_dtype)
-            rdt = resolve_rescore_dtype(self.score_cfg.rescore_dtype,
+        if engine == "exact":
+            from sert_tpu import engines
+            from sert_tpu.ops.exact_topk import prepare_entities
+            rdt = engines.rescore_dtype(self.score_cfg.rescore_dtype,
                                         self.num_entities,
                                         self.recipe.model.entity_dim)
             self.prep = prepare_entities(
@@ -112,7 +112,7 @@ class EntitySearcher:
                                self.score_cfg.similarity),
                 rescore_dtype=rdt, layout=self.score_cfg.layout)
         elif engine == "distributed":
-            # Mesh placement + per-shard Pallas staging once, not per query
+            # Mesh placement + per-shard staging once, not per query
             # (score_topics otherwise re-stages the entity matrix per call).
             from sert_tpu.scoring.run import stage_distributed
             self.prep = stage_distributed(self.params, self.recipe.model,
@@ -167,7 +167,7 @@ class EntitySearcher:
                     ) -> List[Optional[List[Tuple[str, float]]]]:
         """Batched search: one device pipeline for all queries (the
         scorer batches query_batch topics per dispatch, so N queries cost
-        far less than N search() calls on a remote chip). Positions whose
+        far less than N search() calls). Positions whose
         query is entirely out of vocabulary come back as ``None``. Joins
         the same micro-batcher as ``search``, so concurrent multi-query
         posts coalesce too."""

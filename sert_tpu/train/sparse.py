@@ -1,6 +1,6 @@
 """Row-sparse (lazy) optimizer path for sampled-objective LSE training.
 
-Motivation (benchmarks/NOTES.md, 1M stress): with E=1M entities the
+Motivation (the 1M stress): with E=1M entities the
 sampled-softmax gradient touches only B + k entity rows and <= B*w word
 rows per step, but ``jax.grad`` materializes DENSE [E, d] / [V, d]
 gradient arrays (the scatter-add transpose of the gathers) and optax's
@@ -72,7 +72,7 @@ def sparse_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig) -> bool:
         # enables them freely. Lazy adam is standard-lazy (untouched rows
         # skip their momentum decay between visits) — measured on the 1M
         # hard-mode stress that costs 0.034 NDCG@100 / 0.089 recall@100
-        # for a wall-clock wash (benchmarks/NOTES.md round-3 run3), so
+        # (docs/QUALITY.md), so
         # auto keeps adam dense; "on" still forces lazy adam.
         return (train_cfg.optimizer != "adam"
                 and sparse_applicable(model_cfg, train_cfg))

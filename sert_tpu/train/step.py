@@ -1,9 +1,9 @@
 """The compiled train step.
 
 The reference built a Theano loss graph with adagrad/adam update rules and
-compiled it once per run (SURVEY.md section 4.2). The TPU-native equivalent:
-one pure function (params, opt_state, rng) x batch -> (new state, metrics),
-jitted with donated state so XLA updates parameters in place in HBM.
+compiled it once per run (SURVEY.md section 4.2). Here: one pure function (params, opt_state, rng) x batch -> (new state, metrics),
+jitted with donated state so XLA updates parameters in place in device
+memory.
 
 The same step function is reused by the distributed path — parallel/ wraps it
 in shardings rather than rewriting it (SURVEY.md section 3.3).
@@ -56,9 +56,9 @@ def check_optimizer_model_fit(model_cfg: ModelConfig,
     column every step). LSE's sampled objective updates only the gathered
     positive/negative rows, so the row/column statistics pool over columns
     that mostly saw zero gradient and infrequent rows get mis-scaled steps.
-    Measured on the 200k-entity stress: NDCG@100 0.46-0.52 vs adam's 0.89
-    (benchmarks/NOTES.md, 'Scope caveat'). adam/adagrad keep per-parameter
-    state and are the right fit for sparse NCE updates.
+    Measured on the 200k-entity stress: NDCG@100 0.46-0.52 vs adam's 0.89.
+    adam/adagrad keep per-parameter state and are the right fit for sparse
+    NCE updates.
     """
     if (train_cfg.optimizer == "adafactor" and model_cfg.model == "lse"):
         import warnings
@@ -66,7 +66,7 @@ def check_optimizer_model_fit(model_cfg: ModelConfig,
             "optimizer='adafactor' with the sampled-objective LSE model is "
             "a measured quality trap (NDCG 0.46-0.52 vs adam's 0.89 on the "
             "200k stress — factored second-moment statistics mis-scale "
-            "sparse negative-sampling updates; benchmarks/NOTES.md). Use "
+            "sparse negative-sampling updates). Use "
             "optimizer='adam' for LSE; adafactor fits the dense-gradient "
             "families (loglinear, lse_full).",
             UserWarning, stacklevel=3)
@@ -78,7 +78,7 @@ def check_optimizer_model_fit(model_cfg: ModelConfig,
             "MEASURED chance-level on the 1M-entity stress (loss pinned "
             "at ln(E) across lr 0.02-0.5, dense and lazy alike, while "
             "adam trains to NDCG 0.77; tiny-scale adagrad reaches only "
-            "0.79 vs adam's 0.98 — benchmarks/NOTES.md round-3). Use "
+            "0.79 vs adam's 0.98). Use "
             "optimizer='adam' for LSE at scale.",
             UserWarning, stacklevel=3)
 
@@ -134,11 +134,10 @@ def make_optimizer(cfg: TrainConfig) -> optax.GradientTransformation:
     elif cfg.optimizer == "sgd":
         opt = optax.sgd(lr)
     elif cfg.optimizer == "adafactor":
-        # TPU-native large-E option beyond the reference's adam/adagrad menu:
-        # the second moment of the [d, E] matrices is stored FACTORED
-        # (row [d] + col [E] instead of dense [d, E]), so optimizer-state
-        # HBM traffic per step is O(d + E) instead of O(d * E) — measured
-        # ~2 ms/step cheaper than adam at E=500k (benchmarks/NOTES.md).
+        # Large-E option beyond the reference's adam/adagrad menu: the
+        # second moment of the [d, E] matrices is stored FACTORED (row [d]
+        # + col [E] instead of dense [d, E]), so optimizer-state traffic
+        # per step is O(d + E) instead of O(d * E).
         # Momentum stays off (adafactor default) to keep state O(d + E).
         opt = optax.adafactor(lr,
                               # SERT-style fixed lr semantics: disable the
@@ -196,7 +195,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     as a constant so it lives on-device across steps.
 
     ``loss_fn``: override with api.loss_fn's signature — the sharded path
-    substitutes the shard_map-fused softmax here (parallel/fused_loss.py).
+    substitutes the shard_map-fused sampled softmax here
+    (parallel/fused_loss.py).
 
     With ``train_cfg.steps_per_call > 1`` the returned function takes a
     STACKED batch (leading axis = micro-steps) and scans the step inside one
@@ -211,12 +211,6 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         # step below.
         return sparse.make_sparse_train_step(model_cfg, train_cfg,
                                              noise=noise, jit=jit)
-    from sert_tpu.train import fused
-    if loss_fn is None and fused.fused_enabled(model_cfg, train_cfg):
-        # Dense-softmax models: optimizer applied inside the backward
-        # kernel's dW revisit (train/fused.py). The optax state layout is
-        # unchanged, so checkpoints interoperate with the dense step.
-        return fused.make_fused_train_step(model_cfg, train_cfg, jit=jit)
     opt = make_optimizer(train_cfg)
     if loss_fn is None:
         loss_fn = api.loss_fn
@@ -227,8 +221,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         # The closed-over noise is an embedded constant; WITHOUT a barrier
         # XLA constant-folds the sampling pipeline built on it (softmax +
         # cumsum over [E]) at COMPILE time, superlinearly in E — measured
-        # 16s of fold at E=65k on CPU and a wedged multi-minute compile at
-        # E=1M on the chip. The barrier keeps the (trivial) cumsum at
+        # 16s of fold at E=65k on CPU, and superlinear beyond. The barrier keeps the (trivial) cumsum at
         # runtime instead.
         nz = (jax.lax.optimization_barrier(noise)
               if noise is not None else None)

@@ -8,8 +8,7 @@ non-fully-addressable arrays) and where the collective paths can't be
 faked by a single-process mesh.
 
 Exercises, in order:
-  1. make_sharded_train_step over the global mesh (GSPMD + the shard_map
-     fused-softmax path), 2 steps;
+  1. make_sharded_train_step over the global mesh (GSPMD), 2 steps;
   2. multi-host-safe save_checkpoint (process_allgather + process-0-only
      write + step barrier);
   3. loss value agreement across processes, written to a per-process JSON
@@ -54,7 +53,7 @@ def main() -> None:
 
     E, V, B = 32, 64, 16
     cfg = ModelConfig(model="loglinear", vocab_size=V, num_entities=E,
-                      word_dim=8, fused_softmax="on")
+                      word_dim=8)
     tcfg = TrainConfig(batch_size=B, learning_rate=1e-2, donate_state=False,
                        mesh_shape=(n_procs, jax.local_device_count()))
     step, init_fn, put_fn = make_sharded_train_step(cfg, tcfg, mesh)
@@ -93,7 +92,7 @@ def main() -> None:
         # 5. THE FLAGSHIP OBJECTIVE in the genuinely multi-controller
         # regime (round-4 VERDICT missing #3): sampled-softmax LSE with
         # the flash kernel FORCED on ("on" — the small test k is under
-        # auto's >=2048 threshold) + per-process ingestion, exactly the
+        # auto's >=4096 threshold) + per-process ingestion, exactly the
         # synthetic_1m_retrieval composition. k=16 divides both model
         # axes in CONFIGS (4 and 2).
         cfg_lse = ModelConfig(model="lse", objective="sampled_softmax",
@@ -145,4 +144,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    # The flagship composition forces the flash kernel; CPU devices run
+    # it under the Pallas interpreter.
+    from sert_tpu import engines
+    with engines.interpret_kernels():
+        main()

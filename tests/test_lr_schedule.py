@@ -13,7 +13,6 @@ schedule support here is framework surface for the scale experiments
   * the train loop fills lr_decay_steps from the run's step budget.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -121,21 +120,6 @@ class TestScheduledTraining:
             np.testing.assert_allclose(
                 np.asarray(dense.params[k]), np.asarray(lazy.params[k]),
                 atol=2e-7, rtol=2e-6, err_msg=k)
-
-    def test_fused_update_gates_off_under_schedule(self):
-        from sert_tpu.train.fused import fused_applicable, fused_enabled
-        mcfg = ModelConfig(model="loglinear", vocab_size=V,
-                           num_entities=512, word_dim=128)
-        base = _tcfg(optimizer="sgd", batch_size=32)
-        sched = dataclasses.replace(base, lr_schedule="cosine",
-                                    lr_decay_steps=10)
-        warm = dataclasses.replace(base, lr_warmup_steps=5)
-        assert fused_applicable(mcfg, base)
-        assert not fused_applicable(mcfg, sched)
-        assert not fused_applicable(mcfg, warm)
-        with pytest.raises(ValueError, match="constant lr"):
-            fused_enabled(mcfg, dataclasses.replace(sched,
-                                                    fused_update="on"))
 
     def test_loop_fills_decay_horizon(self, tmp_path):
         from sert_tpu.data import (Associations, EntityRegistry,

@@ -225,7 +225,7 @@ class TestDistributedTopk:
         ids=["loglinear", "lse"])
     @pytest.mark.parametrize("merge", [
         pytest.param("allgather", marks=pytest.mark.slow), "ring"])
-    @pytest.mark.parametrize("local_engine", ["scan", "binmax", "pallas"])
+    @pytest.mark.parametrize("local_engine", ["scan", "binmax", "exact"])
     def test_matches_single_device(self, cfg, merge, local_engine):
         mesh = make_mesh((2, 4))
         params = api.init_params(jax.random.key(7), cfg)
@@ -240,7 +240,7 @@ class TestDistributedTopk:
         np.testing.assert_array_equal(np.asarray(got_i), np.asarray(want_i))
 
     @pytest.mark.parametrize("local_engine", [
-        "binmax", pytest.param("pallas", marks=pytest.mark.slow)])
+        "binmax", pytest.param("exact", marks=pytest.mark.slow)])
     def test_local_engine_k_exceeds_shard(self, local_engine):
         """k larger than a shard's row count: local results pad with -inf
         and the merge still recovers the exact global top-k."""
@@ -267,9 +267,8 @@ class TestDistributedTopk:
     def test_pallas_prep_te_reaches_tail_rows(self):
         """Regression: prepare_distributed's te must be the te the per-shard
         sweep runs with. With 5000 rows/shard (padded to 6144 under te=2048)
-        and a sweep hardcoded at te=4096, the grid floored and rows
-        4096..4999 of every shard were scored from uninitialized bins —
-        winners planted there were silently lost."""
+        a sweep at another te would floor the grid and lose the winners
+        planted in rows 4096..4999 of every shard."""
         from sert_tpu.parallel.topk import prepare_distributed
         mesh = make_mesh((1, 2))
         cfg = CFG_LSE.replace(num_entities=10_000)
@@ -288,7 +287,7 @@ class TestDistributedTopk:
         assert prep.te == 2048
         got_s, got_i = distributed_topk(params, cfg, term_ids, num_terms,
                                         mesh, k=8, chunk=512,
-                                        local_engine="pallas", prep=prep)
+                                        local_engine="exact", prep=prep)
         assert np.isfinite(np.asarray(got_s)).all()
         np.testing.assert_allclose(np.asarray(got_s), np.asarray(want_s),
                                    rtol=1e-4, atol=1e-5)

@@ -1,9 +1,9 @@
-"""Sharded fused-softmax kernel on the fake 8-device mesh.
+"""The flash sampled-softmax loss on the fake 8-device mesh.
 
-The [D]-mandate (SURVEY.md section 3.2 build consequence) is the fused
-Pallas cross-entropy ON the mesh: per-shard kernels + psum-stitched
-logsumexp/gold-logit must match the XLA composition for loss AND gradients
-across DP, TP, and mixed mesh shapes.
+The flagship objective shards its batch over ``data`` and its shared
+candidates over ``model``; per-shard kernels (ops/sampled_lse, run under
+the Pallas interpreter here) stitched with pmax/psum must match the XLA
+composition for loss AND gradients across DP, TP and mixed mesh shapes.
 """
 
 import jax
@@ -11,28 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sert_tpu.ops.xent import make_sharded_xent_loss
+from sert_tpu import engines
 from sert_tpu.parallel.mesh import make_mesh
 from sert_tpu.parallel.train import make_sharded_train_step
 from sert_tpu.utils.config import ModelConfig, TrainConfig
 
 B, D, E, V = 32, 16, 64, 50
-
-
-def _ref_loss(pooled, W, b, labels, layout):
-    Wd = W if layout == "de" else W.T
-    z = pooled @ Wd + b
-    lse = jax.scipy.special.logsumexp(z, axis=-1)
-    gold = jnp.take_along_axis(z, labels[:, None], 1)[:, 0]
-    return jnp.sum(lse - gold)
-
-
-def _inputs(seed=0):
-    rng = np.random.default_rng(seed)
-    return (jnp.asarray(rng.normal(size=(B, D)), jnp.float32),
-            jnp.asarray(rng.normal(size=(D, E)), jnp.float32),
-            jnp.asarray(rng.normal(size=(E,)), jnp.float32),
-            jnp.asarray(rng.integers(0, E, size=B), jnp.int32))
 
 
 def _batch(seed, batch_size=16, w=5):
@@ -42,242 +26,10 @@ def _batch(seed, batch_size=16, w=5):
             "entities": rng.integers(0, E, size=batch_size).astype(np.int32)}
 
 
-class TestShardedXent:
-    # Each (mesh, layout) combination pays a fresh ~30-45s shard_map+Pallas
-    # compile on the single-core fake-device backend; the fast gate keeps
-    # the deployment-shaped GSPMD test below (which covers (2,4)/"de")
-    # and leaves the full grid to the CI-style run.
-    @pytest.mark.slow
-    @pytest.mark.parametrize("mesh_shape", [(2, 4), (8, 1), (1, 8)])
-    @pytest.mark.parametrize("layout", ["de", "ed"])
-    def test_loss_and_grads_match_xla(self, mesh_shape, layout):
-        pooled, W, b, labels = _inputs()
-        Wl = W if layout == "de" else W.T
-        mesh = make_mesh(mesh_shape)
-        fn = make_sharded_xent_loss(mesh, layout=layout)
-        ls, gs = jax.value_and_grad(fn, argnums=(0, 1, 2))(pooled, Wl, b, labels)
-        lr, gr = jax.value_and_grad(
-            lambda p, w, bb, l: _ref_loss(p, w, bb, l, layout),
-            argnums=(0, 1, 2))(pooled, Wl, b, labels)
-        assert abs(float(ls - lr)) < 1e-3
-        for a, r in zip(gs, gr):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                       atol=1e-4, rtol=1e-4)
-
-    def test_jitted_with_gspmd_shardings(self):
-        # The deployment shape: shard_map-fused loss under an outer jit with
-        # NamedSharding-placed operands (as make_sharded_train_step runs it).
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        pooled, W, b, labels = _inputs()
-        mesh = make_mesh((2, 4))
-        fn = jax.jit(jax.value_and_grad(make_sharded_xent_loss(mesh)))
-        pooled = jax.device_put(pooled, NamedSharding(mesh, P("data", None)))
-        W = jax.device_put(W, NamedSharding(mesh, P(None, "model")))
-        loss, grad = fn(pooled, W, b, labels)
-        lr = _ref_loss(pooled, W, b, labels, "de")
-        assert abs(float(loss - lr)) < 1e-3
-        assert grad.sharding.spec == P("data", None)
-
-
-@pytest.mark.slow
-class TestShardedXentFuzz:
-    @pytest.mark.parametrize("trial", range(4))
-    def test_random_shapes_and_meshes(self, trial):
-        """Boundary fuzz (SURVEY section 8 hard part 2): random B/E/d with
-        non-tile-multiple shards, odd dims, and B down to the mesh minimum —
-        exercises the OOB tail tiles and d-axis padding per shard."""
-        rng = np.random.default_rng(1000 + trial)
-        dp_, tp_ = [(2, 4), (4, 2), (8, 1), (1, 8)][trial]
-        Bf = dp_ * int(rng.integers(1, 9))
-        Ef = tp_ * int(rng.integers(2, 33))
-        df = int(rng.integers(3, 24))
-        layout = ("de", "ed")[trial % 2]
-        mesh = make_mesh((dp_, tp_))
-        pooled = jnp.asarray(rng.normal(size=(Bf, df)), jnp.float32)
-        W = jnp.asarray(rng.normal(
-            size=((df, Ef) if layout == "de" else (Ef, df))), jnp.float32)
-        b = jnp.asarray(rng.normal(size=(Ef,)), jnp.float32)
-        labels = jnp.asarray(rng.integers(0, Ef, size=Bf), jnp.int32)
-        fn = make_sharded_xent_loss(mesh, layout=layout)
-        ls, gs = jax.value_and_grad(fn, argnums=(0, 1, 2))(pooled, W, b,
-                                                           labels)
-        lr, gr = jax.value_and_grad(
-            lambda p, w, bb, l: _ref_loss_shape(p, w, bb, l, layout),
-            argnums=(0, 1, 2))(pooled, W, b, labels)
-        assert abs(float(ls - lr)) < 1e-3 * max(1.0, abs(float(lr)))
-        for a, r in zip(gs, gr):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                       atol=2e-4, rtol=2e-4)
-
-
-def _ref_loss_shape(pooled, W, b, labels, layout):
-    Wd = W if layout == "de" else W.T
-    z = pooled @ Wd + b
-    lse = jax.scipy.special.logsumexp(z, axis=-1)
-    gold = jnp.take_along_axis(z, labels[:, None], 1)[:, 0]
-    return jnp.sum(lse - gold)
-
-
-class TestFusedTrainOnMesh:
-    @pytest.mark.parametrize("model", [
-        "loglinear",
-        pytest.param("lse_full", marks=pytest.mark.slow),
-    ])
-    def test_step_parity_fused_vs_xla(self, model):
-        mesh = make_mesh((2, 4))
-        states = {}
-        for fused in ("on", "off"):
-            cfg = ModelConfig(model=model, vocab_size=V, num_entities=E,
-                              word_dim=8, entity_dim=8, fused_softmax=fused)
-            tcfg = TrainConfig(batch_size=16, learning_rate=1e-2,
-                               donate_state=False)
-            step, init_fn, put_fn = make_sharded_train_step(cfg, tcfg, mesh)
-            state = init_fn()
-            for i in range(3):
-                state, metrics = step(state, put_fn(_batch(i)))
-            states[fused] = jax.device_get(state.params)
-        for k in states["on"]:
-            np.testing.assert_allclose(np.asarray(states["on"][k]),
-                                       np.asarray(states["off"][k]),
-                                       atol=1e-5, rtol=1e-5)
-
-    def test_fused_params_stay_sharded(self):
-        cfg = ModelConfig(model="loglinear", vocab_size=V, num_entities=E,
-                          word_dim=8, fused_softmax="on")
-        tcfg = TrainConfig(batch_size=16, learning_rate=1e-2,
-                           donate_state=False)
-        mesh = make_mesh((2, 4))
-        step, init_fn, put_fn = make_sharded_train_step(cfg, tcfg, mesh)
-        state, _ = step(init_fn(), put_fn(_batch(0)))
-        spec = state.params["proj_w"].sharding.spec
-        assert spec == jax.sharding.PartitionSpec(None, "model")
-
-    def test_auto_falls_back_for_wide_models_on_mesh(self, monkeypatch):
-        """VERDICT r3 weak #2: 'auto' on a TPU mesh must mean the same
-        thing it means single-device — a model too wide for the kernel's
-        VMEM plan (plain_xent_te raises for d >= ~2432 post-padding) routes
-        to the XLA composition instead of raising at trace time. The width
-        gate only activates past E >= 4096 and backend 'tpu', so pin the
-        backend (the step itself is the pure-XLA fallback and runs fine on
-        the fake CPU mesh)."""
-        import sert_tpu.models.loglinear as ll
-        import sert_tpu.parallel.train as ptrain
-        monkeypatch.setattr(ll.jax, "default_backend", lambda: "tpu")
-        wide = ModelConfig(model="loglinear", vocab_size=V,
-                           num_entities=4096, word_dim=4096,
-                           fused_softmax="auto")
-        # one policy: the mesh gate delegates to the single-device gate
-        assert not ptrain._want_fused(wide)
-        tcfg = TrainConfig(batch_size=16, learning_rate=1e-2,
-                           donate_state=False)
-        mesh = make_mesh((2, 4))
-        step, init_fn, put_fn = make_sharded_train_step(wide, tcfg, mesh)
-        state, metrics = step(init_fn(), put_fn(_batch(0, w=3)))
-        assert np.isfinite(float(metrics["loss"]))
-
-    def test_sampled_lse_rejects_fused_loss(self):
-        from sert_tpu.parallel.fused_loss import make_sharded_fused_loss
-        cfg = ModelConfig(model="lse", vocab_size=V, num_entities=E,
-                          word_dim=8, entity_dim=8)
-        with pytest.raises(ValueError, match="full-softmax"):
-            make_sharded_fused_loss(cfg, make_mesh((2, 4)))
-
-    def test_indivisible_entities_rejected(self):
-        from sert_tpu.parallel.fused_loss import make_sharded_fused_loss
-        cfg = ModelConfig(model="loglinear", vocab_size=V, num_entities=42,
-                          word_dim=8, fused_softmax="on")
-        with pytest.raises(ValueError, match="divide"):
-            make_sharded_fused_loss(cfg, make_mesh((2, 4)))
-
-
-class TestFusedUpdateOnPureTPMesh:
-    """fused_update='on' on a data=1 mesh: the optimizer applies inside
-    each shard's backward kernel (ops/xent.make_sharded_xent_apply) — the
-    per-shard dW is the complete gradient slice for the shard's entity
-    columns, so no cross-shard reduction precedes the update. Parity
-    target: the sharded DENSE step (GSPMD loss + XLA optax) on the same
-    mesh. Tolerances per the single-device fused-step contract
-    (tests/test_train_fused.py): sgd/adagrad to reassociation, adam
-    amplifies tile-width reassociation near v~0."""
-
-    D128 = 128  # the fused-update kernel requires dim % 128 == 0
-
-    def _run(self, model, optn, mesh_shape, fu, n=3):
-        mesh = make_mesh(mesh_shape)
-        cfg = ModelConfig(model=model, vocab_size=V, num_entities=E,
-                          word_dim=(self.D128 if model == "loglinear"
-                                    else 64),
-                          entity_dim=self.D128, fused_softmax="off")
-        tcfg = TrainConfig(batch_size=16, learning_rate=0.05,
-                           optimizer=optn, donate_state=False,
-                           mesh_shape=mesh_shape, fused_update=fu)
-        step, init_fn, put_fn = make_sharded_train_step(cfg, tcfg, mesh)
-        state = init_fn()
-        for i in range(n):
-            state, metrics = step(state, put_fn(_batch(i)))
-        return (jax.device_get(state.params), state, metrics)
-
-    @pytest.mark.parametrize("optn,tol", [
-        ("sgd", 1e-7),
-        pytest.param("adam", 1e-4, marks=pytest.mark.slow),
-        pytest.param("adagrad", 1e-6, marks=pytest.mark.slow),
-    ])
-    def test_matches_dense_sharded_step_loglinear(self, optn, tol):
-        p_on, state, m_on = self._run("loglinear", optn, (1, 8), "on")
-        p_off, _, m_off = self._run("loglinear", optn, (1, 8), "off")
-        for k in p_on:
-            np.testing.assert_allclose(np.asarray(p_on[k]),
-                                       np.asarray(p_off[k]),
-                                       rtol=tol, atol=tol, err_msg=k)
-        np.testing.assert_allclose(float(m_on["loss"]),
-                                   float(m_off["loss"]), rtol=1e-5)
-        np.testing.assert_allclose(float(m_on["grad_norm"]),
-                                   float(m_off["grad_norm"]), rtol=1e-4)
-        # params and optimizer slots stay sharded over the model axis
-        assert (state.params["proj_w"].sharding.spec
-                == jax.sharding.PartitionSpec(None, "model"))
-        if optn == "adam":
-            assert (state.opt_state[0].mu["proj_w"].sharding.spec
-                    == jax.sharding.PartitionSpec(None, "model"))
-
-    def test_matches_dense_sharded_step_lse_full(self):
-        p_on, state, _ = self._run("lse_full", "adam", (1, 4), "on")
-        p_off, _, _ = self._run("lse_full", "adam", (1, 4), "off")
-        for k in p_on:
-            np.testing.assert_allclose(
-                np.asarray(p_on[k], np.float32),
-                np.asarray(p_off[k], np.float32),
-                rtol=1e-4, atol=1e-4, err_msg=k)
-        assert (state.params["entity_emb"].sharding.spec
-                == jax.sharding.PartitionSpec("model", None))
-
-    def test_gating(self):
-        from sert_tpu.train.fused import (fused_tp_applicable,
-                                          fused_tp_enabled)
-        cfg = ModelConfig(model="loglinear", vocab_size=V, num_entities=E,
-                          word_dim=self.D128)
-        # 'on' + data parallelism: loud error, not a silent fallback
-        with pytest.raises(ValueError, match="pure-TP"):
-            fused_tp_enabled(cfg, TrainConfig(batch_size=16,
-                                              fused_update="on",
-                                              mesh_shape=(2, 4)),
-                             make_mesh((2, 4)))
-        # 'auto' stays off on meshes (single-device measurements do not
-        # transfer; only 'on' opts in)
-        assert not fused_tp_enabled(cfg, TrainConfig(batch_size=16),
-                                    make_mesh((1, 8)))
-        assert fused_tp_applicable(cfg, TrainConfig(batch_size=16),
-                                   mesh_shape=(1, 8))
-        # entity count must divide the model axis
-        assert not fused_tp_applicable(
-            ModelConfig(model="loglinear", vocab_size=V, num_entities=63,
-                        word_dim=self.D128),
-            TrainConfig(batch_size=16), mesh_shape=(1, 8))
-        # sampled LSE has no entity-wide softmax to fuse
-        assert not fused_tp_applicable(
-            ModelConfig(model="lse", vocab_size=V, num_entities=E,
-                        word_dim=self.D128, entity_dim=self.D128),
-            TrainConfig(batch_size=16), mesh_shape=(1, 8))
+@pytest.fixture(autouse=True)
+def _interpret_kernels():
+    with engines.interpret_kernels():
+        yield
 
 
 class TestShardedSampledLse:
@@ -295,16 +47,20 @@ class TestShardedSampledLse:
                            entity_dim=8, num_negatives=k,
                            fused_softmax=fused)
 
-    def test_loss_and_grads_match_xla(self):
+    # (2, 4) is the mixed mesh; (1, 4) and (4, 1) are the four-card
+    # layouts of the recipes (candidates over model / batch over data).
+    @pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 4), (4, 1)])
+    def test_loss_and_grads_match_xla(self, mesh_shape):
         from sert_tpu.models import api, lse
         from sert_tpu.parallel.fused_loss import make_sharded_sampled_loss
-        mesh = make_mesh((2, 4))
+        mesh = make_mesh(mesh_shape)
         cfg = self._cfg("on")
         params = api.init_params(jax.random.key(0), cfg)
         batch = {k: jnp.asarray(v) for k, v in _batch(3).items()}
         rng = jax.random.key(7)
         sh = make_sharded_sampled_loss(cfg, mesh)
-        ls, gs = jax.value_and_grad(sh)(params, batch, cfg, rng)
+        ls, gs = jax.jit(jax.value_and_grad(sh), static_argnums=2)(
+            params, batch, cfg, rng)
         ref = lambda p: lse.loss_sampled_softmax(p, batch, self._cfg("off"),
                                                  rng=rng)
         lr, gr = jax.value_and_grad(ref)(params)
@@ -344,6 +100,8 @@ class TestShardedSampledLse:
             make_sharded_sampled_loss(self._cfg("on", k=10), mesh)
         # 'auto' + indivisible k: silent fallback to the XLA composition
         assert not _want_fused_sampled(self._cfg("auto", k=10), mesh)
+        # 'auto' + divisible k below the kernel's threshold: XLA too
+        assert not _want_fused_sampled(self._cfg("auto"), mesh)
         # wrong family/objective: loud error
         with pytest.raises(ValueError, match="sampled_softmax"):
             make_sharded_sampled_loss(
@@ -364,7 +122,8 @@ class TestShardedSampledLse:
         batch = {k: jnp.asarray(v) for k, v in _batch(5).items()}
         rng = jax.random.key(11)
         sh = make_sharded_sampled_loss(cfg, mesh)
-        ls, gs = jax.value_and_grad(sh)(params, batch, cfg, rng)
+        ls, gs = jax.jit(jax.value_and_grad(sh), static_argnums=2)(
+            params, batch, cfg, rng)
         lr, gr = jax.value_and_grad(
             lambda p: lse.loss_sampled_softmax(p, batch, self._cfg("off"),
                                                rng=rng))(params)

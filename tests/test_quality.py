@@ -108,7 +108,7 @@ class TestVocabGapBand:
     """The CIKM-paper result shape (round-2 VERDICT missing item 1): on
     the paraphrase-planted stand-in, the SEMANTIC model must beat the
     LEXICAL baseline — term matching is structurally capped there, while
-    distributional learning is not. Full-scale calibration (E=900, TPU):
+    distributional learning is not. Full-scale calibration (E=900):
     lm 0.784, sampled-softmax LSE 0.856 (p=0.0002), nce-k10 0.420,
     lse_full 0.854 — the sampled objective within 0.002 of full."""
 

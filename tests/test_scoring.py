@@ -92,15 +92,27 @@ class TestStreaming:
 
 
 class TestPallasEngine:
+    """The exact bin-max engine, with the XLA sweep and with the Triton
+    sweep kernel under the interpreter."""
+
+    @pytest.mark.parametrize("interpret", [False, True],
+                             ids=["xla_sweep", "triton_sweep"])
     @pytest.mark.parametrize("cfg", [CFG_LL, CFG_LSE], ids=["loglinear", "lse"])
-    def test_pallas_topk_matches_streaming(self, cfg):
-        from sert_tpu.scoring.scorer import pallas_topk
+    def test_pallas_topk_matches_streaming(self, cfg, interpret):
+        from sert_tpu import engines
+        from sert_tpu.scoring.scorer import exact_engine_topk
         rng = np.random.default_rng(11)
         params = api.init_params(jax.random.key(11), cfg)
         term_ids, num_terms = _queries(rng, Q=5)
         want_s, want_i = streaming_topk(params, cfg, term_ids, num_terms,
                                         k=9, chunk=16)
-        got_s, got_i = pallas_topk(params, cfg, term_ids, num_terms, k=9)
+        if interpret:
+            with engines.interpret_kernels():
+                got_s, got_i = exact_engine_topk(params, cfg, term_ids,
+                                                 num_terms, k=9)
+        else:
+            got_s, got_i = exact_engine_topk(params, cfg, term_ids,
+                                             num_terms, k=9)
         # prefilter is bf16 so compare by dense scores at the returned idx
         dense = np.asarray(dense_scores(params, cfg, term_ids, num_terms))
         got_sc = np.take_along_axis(dense, np.asarray(got_i), axis=1)
@@ -115,15 +127,15 @@ class TestPallasEngine:
         ids=["loglinear", "lse"])
     def test_clustered_adaptive_config_equivalent(self, cfg):
         """ScoreConfig(layout="clustered", adaptive_bins=N) must produce
-        the same run as the default pallas engine (config-level wiring of
+        the same run as the default exact engine (config-level wiring of
         ops/exact_topk's staged permutation + two-phase rescore)."""
         params = api.init_params(jax.random.key(23), cfg)
         names = [f"e{i}" for i in range(cfg.num_entities)]
         topics = {"q1": [5, 6], "q2": [7, 8, 9], "q3": [1]}
         base = score_topics(params, cfg, topics, names,
-                            ScoreConfig(top_k=12, engine="pallas"))
+                            ScoreConfig(top_k=12, engine="exact"))
         fast = score_topics(params, cfg, topics, names,
-                            ScoreConfig(top_k=12, engine="pallas",
+                            ScoreConfig(top_k=12, engine="exact",
                                         layout="clustered",
                                         adaptive_bins=6))
         for qid in topics:
@@ -137,10 +149,11 @@ class TestPallasEngine:
         # on the CPU test backend auto resolves by size
         assert resolve_engine(ScoreConfig(entity_chunk=100), 50) == "dense"
         assert resolve_engine(ScoreConfig(entity_chunk=100), 500) == "streaming"
-        assert resolve_engine(ScoreConfig(engine="pallas"), 50) == "pallas"
-        assert resolve_engine(ScoreConfig(use_pallas=True), 50) == "pallas"
+        assert resolve_engine(ScoreConfig(engine="exact"), 50) == "exact"
         with pytest.raises(ValueError):
             resolve_engine(ScoreConfig(engine="bogus"), 50)
+        with pytest.raises(ValueError):   # the retired engine name is gone
+            resolve_engine(ScoreConfig(engine="pallas"), 50)
 
     def test_approx_engine_high_overlap(self):
         params = api.init_params(jax.random.key(13), CFG_LSE)
@@ -185,9 +198,9 @@ class TestPallasEngine:
         names = [f"e{i}" for i in range(40)]
         topics = {f"q{i}": [1 + i, 2 + i] for i in range(6)}
         sc = ScoreConfig(top_k=7, engine="distributed", mesh_shape=(2, 4),
-                         query_batch=4, local_engine="pallas")
+                         query_batch=4, local_engine="exact")
         staged = stage_distributed(params, cfg, sc)
-        assert staged.local_engine == "pallas" and staged.prep is not None
+        assert staged.local_engine == "exact" and staged.prep is not None
         run_once = score_topics(params, cfg, topics, names, sc)
         run_staged = score_topics(params, cfg, topics, names, sc, prep=staged)
         for qid in topics:
@@ -200,7 +213,7 @@ class TestPallasEngine:
         run_d = score_topics(params, CFG_LSE, topics, names,
                              ScoreConfig(top_k=7, entity_chunk=1 << 20))
         run_p = score_topics(params, CFG_LSE, topics, names,
-                             ScoreConfig(top_k=7, use_pallas=True))
+                             ScoreConfig(top_k=7, engine="exact"))
         for qid in topics:
             assert [n for n, _ in run_d[qid]] == [n for n, _ in run_p[qid]]
 
@@ -247,17 +260,23 @@ class TestRunGlue:
 
 
 class TestLLNormalizer:
-    def test_fused_equals_scan(self):
-        """The Pallas-partials normalizer (round 2: reuses the flash-xent
-        forward) must equal the XLA chunked scan — both exact per-term
-        logsumexp over all entities."""
+    @pytest.mark.parametrize("chunk", [16, 1 << 16])
+    def test_scan_matches_dense_logsumexp(self, chunk):
+        """The fixed-memory normalizer scan (ragged last chunk, or one
+        chunk) equals the per-term logsumexp over all entities."""
         from sert_tpu.scoring.scorer import ll_log_normalizer
         params = api.init_params(jax.random.key(11), CFG_LL)
         rng = np.random.default_rng(11)
-        tids = jnp.asarray(rng.integers(0, CFG_LL.vocab_size,
-                                        size=(6, 4)).astype(np.int32))
-        nt = jnp.asarray(rng.integers(1, 5, size=6).astype(np.int32))
-        scan = ll_log_normalizer(params, CFG_LL, tids, nt, engine="scan")
-        fused = ll_log_normalizer(params, CFG_LL, tids, nt, engine="fused")
-        np.testing.assert_allclose(np.asarray(fused), np.asarray(scan),
-                                   rtol=1e-5, atol=1e-5)
+        tids = rng.integers(0, CFG_LL.vocab_size, size=(6, 4)).astype(np.int32)
+        nt = rng.integers(1, 5, size=6).astype(np.int32)
+        got = ll_log_normalizer(params, CFG_LL, jnp.asarray(tids),
+                                jnp.asarray(nt), chunk=chunk)
+        W = np.asarray(params["proj_w"], np.float64)
+        b = np.asarray(params["proj_b"], np.float64)
+        emb = np.asarray(params["word_emb"], np.float64)[tids]   # [Q, T, d]
+        z = emb @ W + b                                         # [Q, T, E]
+        mx = z.max(-1, keepdims=True)
+        lse = (mx + np.log(np.exp(z - mx).sum(-1, keepdims=True)))[..., 0]
+        mask = np.arange(4)[None, :] < nt[:, None]
+        np.testing.assert_allclose(np.asarray(got), (lse * mask).sum(-1),
+                                   rtol=1e-5, atol=1e-4)

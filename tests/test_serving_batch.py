@@ -1,8 +1,8 @@
 """Cross-request micro-batching in serving (round-2 VERDICT item 3).
 
 The engine's dispatch cost is batch-size-invariant up to query_batch
-(benchmarks/NOTES.md serving table), so concurrent requests must coalesce
-into shared engine calls instead of queueing one ~5 ms dispatch each.
+so concurrent requests must coalesce into shared engine calls instead of
+queueing one dispatch each.
 Covers: result equivalence with the serial path, coalescing under
 contention (direct and through the HTTP loopback), per-request k inside a
 shared batch, OOV placeholders, and error propagation to every waiter.

@@ -62,7 +62,7 @@ def _run(mcfg, tcfg, n_steps, noise=None, seed_key=0):
 class TestGating:
     def test_auto_enables_exactly_when_applicable(self):
         # adam is EXCLUDED from auto: lazy adam's momentum-tail semantics
-        # measured -0.034 NDCG@100 on the 1M stress (NOTES.md round-3);
+        # measured -0.034 NDCG@100 on the 1M stress;
         # adagrad/sgd lazy are bit-exact and stay auto-on.
         assert not sparse_enabled(_cfg(), _tcfg())          # default adam
         assert sparse_enabled(_cfg(), _tcfg(optimizer="adagrad"))

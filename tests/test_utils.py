@@ -109,7 +109,8 @@ class TestProfiling:
 
 
 class TestCompilationCache:
-    """utils/cache.py: persistent-cache wiring (round 4)."""
+    """utils/cache.py: JAX_COMPILATION_CACHE_DIR wins when set; otherwise
+    one fixed, gitignored directory inside the checkout."""
 
     def _restore(self, prev):
         jax.config.update("jax_compilation_cache_dir", prev)
@@ -119,19 +120,37 @@ class TestCompilationCache:
         prev = jax.config.jax_compilation_cache_dir
         monkeypatch.setenv("SERT_NO_COMPILE_CACHE", "1")
         try:
-            assert cache.enable_compilation_cache("/nonexistent/x") is None
+            assert cache.enable_compilation_cache() is None
             assert jax.config.jax_compilation_cache_dir == prev
         finally:
             self._restore(prev)
 
-    def test_respects_existing_config(self, tmp_path):
+    def test_respects_existing_config(self, tmp_path, monkeypatch):
+        """The environment variable wins, and nothing is set in code: JAX
+        took the variable's value itself."""
         from sert_tpu.utils import cache
         prev = jax.config.jax_compilation_cache_dir
+        monkeypatch.delenv("SERT_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
         try:
-            jax.config.update("jax_compilation_cache_dir", str(tmp_path))
-            assert cache.enable_compilation_cache("/other") == str(tmp_path)
+            assert cache.cache_dir() == str(tmp_path)
+            assert cache.enable_compilation_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == prev
         finally:
             self._restore(prev)
+
+    def test_default_dir_fixed_inside_checkout_and_gitignored(
+            self, monkeypatch):
+        import os
+        from sert_tpu.utils import cache
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.delenv("SERT_NO_COMPILE_CACHE", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.cache_dir() == cache.DEFAULT_DIR
+        assert os.path.dirname(cache.DEFAULT_DIR) == repo
+        name = os.path.basename(cache.DEFAULT_DIR)
+        with open(os.path.join(repo, ".gitignore")) as fh:
+            assert f"{name}/" in fh.read().split()
 
     def test_enables_and_writes_entries(self, tmp_path, monkeypatch):
         from sert_tpu.utils import cache
@@ -139,6 +158,8 @@ class TestCompilationCache:
         prev_t = jax.config.jax_persistent_cache_min_compile_time_secs
         prev_b = jax.config.jax_persistent_cache_min_entry_size_bytes
         monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.delenv("SERT_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.setattr(cache, "DEFAULT_DIR", str(tmp_path / "c"))
         try:
             # Any earlier CLI-driving test has already set the global cache
             # dir (cli.main enables it) AND initialized the cache backend;
@@ -151,7 +172,7 @@ class TestCompilationCache:
                 _cc.reset_cache()
             except (ImportError, AttributeError):
                 pytest.skip("jax compilation-cache reset unavailable")
-            got = cache.enable_compilation_cache(str(tmp_path / "c"))
+            got = cache.enable_compilation_cache()
             assert got == str(tmp_path / "c")
             # Thresholds lowered only HERE so the toy program writes an
             # entry (product code keeps jax defaults).
